@@ -1,0 +1,27 @@
+"""static-gr — the paper's generative-retrieval serving stack (§5.1).
+
+A PLUM-like dense decoder (~3B params) over Semantic-ID tokens: L=8 SID
+levels, token cardinality |V|=2048, beam M=70, dense-mask depth d=2,
+constrained to a 20M-item restricted vocabulary.  Same values as
+``repro.configs.static_gr``.
+"""
+from repro_torch.configs.base import TransformerConfig
+
+# ~3B dense params (26L x 3072, GQA 24H/kv8), SID vocab 2048 + BOS/pad.
+CONFIG = TransformerConfig(
+    name="static-gr-3b",
+    n_layers=26,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=12288,
+    vocab_size=2050,
+    tie_embeddings=True,
+)
+
+SID_VOCAB = 2048
+SID_LENGTH = 8
+DENSE_D = 2
+BEAM_SIZE = 70
+HISTORY_LEN = 256  # user-history tokens fed at prefill
+N_CONSTRAINTS = 20_000_000  # "fresh video" corpus of §5.2

@@ -1,0 +1,60 @@
+"""Move the reference package's parameters and tries into the port.
+
+Both helpers take host arrays, never JAX objects: the caller converts with
+``jax.tree.map(np.asarray, params)`` (or ``np.asarray`` per field), so the
+two packages compute with the same numbers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import TransformerConfig
+from repro_torch.core.transition_matrix import TransitionMatrix
+from repro_torch.models.transformer import check_supported, torch_dtype
+
+__all__ = ["params_from_jax", "transition_matrix_from_numpy"]
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    # numpy has no bfloat16 of its own (ml_dtypes' is not a torch dtype)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.tensor(a).to(device=device, dtype=dtype)
+
+
+def params_from_jax(params_np, cfg: TransformerConfig, device=None):
+    """The reference's GQA parameter pytree (numpy leaves, layers stacked on
+    axis 0 under ``dense_layers``) as the port's parameter dict."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg)
+
+    def conv(tree, i=None):
+        if isinstance(tree, dict):
+            return {k: conv(v, i) for k, v in tree.items()}
+        return _tensor(tree if i is None else np.asarray(tree)[i], dtype, dev)
+
+    stacked = params_np["dense_layers"]
+    out = {"emb": conv(params_np["emb"]),
+           "final_norm": conv(params_np["final_norm"]),
+           "layers": [conv(stacked, i) for i in range(cfg.n_layers)]}
+    if "unemb" in params_np:
+        out["unemb"] = conv(params_np["unemb"])
+    return out
+
+
+def transition_matrix_from_numpy(tm, device=None) -> TransitionMatrix:
+    """A port :class:`TransitionMatrix` from any object with the reference
+    matrix's fields (arrays readable by ``np.asarray``)."""
+    arrays = {f: np.array(getattr(tm, f)) for f in (
+        "row_pointers", "edges", "l0_mask_packed", "l0_states",
+        "l1_mask_packed", "l1_states")}
+    meta = dict(vocab_size=int(tm.vocab_size), sid_length=int(tm.sid_length),
+                dense_d=int(tm.dense_d),
+                level_bmax=tuple(int(b) for b in tm.level_bmax),
+                n_states=int(tm.n_states), n_edges=int(tm.n_edges),
+                n_constraints=int(tm.n_constraints))
+    return TransitionMatrix.from_numpy(arrays, meta, device)

@@ -1,0 +1,126 @@
+"""Batched constrained beam search over Semantic IDs (paper §3.2 + Alg. 1).
+
+Counterpart of ``repro.core.beam_search``: per batch element the ``M`` best
+prefixes, their cumulative log-probs and per-beam trie states, advanced by a
+:class:`~repro_torch.decoding.DecodePolicy`.  The decoder is
+``logits_fn(carry, last_tokens, step) -> (logits, carry)``.
+
+Top-M selection keeps ``jax.lax.top_k``'s order: ties go to the lower flat
+index.  ``torch.topk`` promises no tie order, so selection is a stable
+descending sort (:func:`top_m`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core.vntk import NEG_INF
+from repro_torch.decoding.policy import as_policy
+
+__all__ = ["BeamState", "beam_search", "recall_at_k", "top_m"]
+
+LogitsFn = Callable  # (carry, last_tokens (B, M) int32, step) -> (logits, carry)
+CarryGatherFn = Callable  # (carry, beam_idx (B, M) int64) -> carry
+
+
+@dataclasses.dataclass
+class BeamState:
+    tokens: torch.Tensor  # (B, M, L) int32 decoded prefixes
+    scores: torch.Tensor  # (B, M) float32 cumulative log-probs
+    nodes: torch.Tensor  # (B, M) int32 per-beam trie states (ROOT init)
+
+
+def _init_state(batch: int, beams: int, length: int, device) -> BeamState:
+    scores = torch.full((batch, beams), NEG_INF, dtype=torch.float32,
+                        device=device)
+    scores[:, 0] = 0.0
+    return BeamState(
+        tokens=torch.zeros((batch, beams, length), dtype=torch.int32,
+                           device=device),
+        scores=scores,
+        nodes=torch.ones((batch, beams), dtype=torch.int32, device=device),
+    )
+
+
+def top_m(x: torch.Tensor, m: int):
+    """Top ``m`` along the last axis, ties to the lower index (lax.top_k)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :m], idx[..., :m]
+
+
+def beam_search(
+    logits_fn: LogitsFn,
+    carry,
+    batch_size: int,
+    beam_size: int,
+    length: int,
+    policy,
+    carry_gather_fn: Optional[CarryGatherFn] = None,
+    first_logits: Optional[torch.Tensor] = None,
+    return_trace: bool = False,
+):
+    """Run ``length`` constrained decode steps; beams come out score-sorted.
+
+    ``first_logits`` (B, V) stands in for step 0 (the prefill's last
+    position).  The state lives on the constraint matrix's device.
+    ``carry_gather_fn`` reorders the carry after every step that another
+    step follows; after the last step no logits are read, so the returned
+    carry is not reordered for it.
+
+    Returns ``(state, carry)``, or ``(state, carry, trace)`` with
+    ``return_trace`` — ``trace`` is a :class:`BeamState` whose fields carry a
+    leading step axis (the post-advance beams at every level).
+    """
+    policy = as_policy(policy)
+    B, M = batch_size, beam_size
+    device = policy.constraints.device
+    state = _init_state(B, M, length, device)
+    batch_ix = torch.arange(B, device=device)[:, None]
+    trace = []
+    for step in range(length):
+        if step == 0 and first_logits is not None:
+            logits = first_logits[:, None, :].expand(
+                B, M, first_logits.shape[-1])
+        else:
+            last = (state.tokens[:, :, step - 1] if step > 0 else
+                    torch.zeros((B, M), dtype=torch.int32, device=device))
+            logits, carry = logits_fn(carry, last, step)  # (B, M, V)
+        V = logits.shape[-1]
+        if policy.supports_topk_at(step):
+            # candidate-compressed advance (DESIGN.md §8): the lists carry
+            # the dense rows' top-C in flat-index tie order, C >= min(M, V)
+            C = policy.candidate_width(M, step)
+            c_lp, c_tok, c_next = policy.step_topk(logits, state.nodes, step, C)
+            total = state.scores[:, :, None] + c_lp  # (B, M, C)
+            top_scores, top_idx = top_m(total.reshape(B, M * C), M)
+            beam_idx = top_idx // C
+            token = c_tok.reshape(B, M * C).gather(1, top_idx)
+            new_nodes = c_next.reshape(B, M * C).gather(1, top_idx)
+        else:
+            lp, next_dense = policy.step(logits, state.nodes, step)
+            total = state.scores[:, :, None] + lp  # (B, M, V)
+            top_scores, top_idx = top_m(total.reshape(B, M * V), M)
+            beam_idx = top_idx // V
+            token = (top_idx % V).to(torch.int32)
+            new_nodes = next_dense[batch_ix, beam_idx, token.long()]
+        new_tokens = state.tokens[batch_ix, beam_idx]  # (B, M, L)
+        new_tokens[:, :, step] = token
+        state = BeamState(tokens=new_tokens, scores=top_scores,
+                          nodes=new_nodes.to(torch.int32))
+        if return_trace:
+            trace.append(state)
+        if carry_gather_fn is not None and step < length - 1:
+            carry = carry_gather_fn(carry, beam_idx)
+    if return_trace:
+        stacked = BeamState(*(torch.stack([getattr(s, f.name) for s in trace])
+                              for f in dataclasses.fields(BeamState)))
+        return state, carry, stacked
+    return state, carry
+
+
+def recall_at_k(beams: torch.Tensor, targets: torch.Tensor, k: int):
+    """Fraction of batch rows whose target appears in the top-k beams."""
+    hit = torch.all(beams[:, :k, :] == targets[:, None, :], dim=-1)
+    return hit.any(dim=-1).float().mean()

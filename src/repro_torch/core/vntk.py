@@ -1,0 +1,125 @@
+"""Vectorized Node Transition Kernel — plain PyTorch references (paper Alg. 2).
+
+The counterparts of ``repro.core.vntk``'s XLA references, and the oracles of
+the CUDA kernels in ``repro_torch.kernels.vntk``.  Torch has no fill-mode
+gather and no implicit index clamping, so the speculative burst masks its
+out-of-range slots explicitly and the projection scatters into a
+``(nb, V + 1)`` buffer whose extra column absorbs invalid slots, as the
+reference does.  Integer outputs leave as int32, like the reference's.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["NEG_INF", "LANE", "topk_lane", "candidate_width",
+           "vntk_reference_scatter", "vntk_topk_reference"]
+
+NEG_INF = -1.0e10
+
+# Candidate-width lane rounding (DESIGN.md §8).  The TPU kernel rounded C to
+# its 128-wide lane; the port keeps the reference's layout-free XLA lane.
+# Bit-identity only needs C >= min(M, V).
+LANE = 8
+
+
+def topk_lane() -> int:
+    """Lane the candidate-topk output width is rounded to."""
+    return LANE
+
+
+def candidate_width(beams: int, vocab_size: int, lane: int = LANE) -> int:
+    """Per-beam candidate count ``C = min(round_up(M, lane), V)`` (§8)."""
+    return max(1, min(-(-int(beams) // lane) * lane, int(vocab_size)))
+
+
+def _speculative_burst(nodes, row_pointers, edges, bmax: int):
+    """Phases 1-3: row lookup, ``bmax``-slot burst, ``iota < n_child``.
+
+    Returns ``(cols, nxt, valid)``, each ``(nb, bmax)``; ``cols`` is int64
+    (torch indexes with it), ``nxt`` int32 and 0 on invalid slots.  Slots
+    past the edge array read 0, like the reference's ``mode="fill"`` take.
+    """
+    n = nodes.reshape(-1).long()
+    starts = row_pointers[n].long()  # index first: the trie has ~1e8 rows
+    lens = row_pointers[n + 1].long() - starts
+    offsets = torch.arange(bmax, device=nodes.device)
+    idx = starts[:, None] + offsets[None, :]
+    in_range = (idx >= 0) & (idx < edges.shape[0])
+    gathered = edges[idx.clamp(0, edges.shape[0] - 1)]
+    gathered = torch.where(in_range[..., None], gathered, 0)
+    valid = offsets[None, :] < lens[:, None]
+    cols = gathered[..., 0].long()
+    nxt = torch.where(valid, gathered[..., 1], 0).to(torch.int32)
+    return cols, nxt, valid
+
+
+def vntk_reference_scatter(log_probs, nodes, row_pointers, edges,
+                           bmax: int, vocab_size: int):
+    """Alg. 2, vocab-aligned: ``(masked_log_probs, next_dense)``, both
+    ``(..., V)``; ``NEG_INF`` / 0 off the trie."""
+    V = vocab_size
+    batch_shape = tuple(nodes.shape)
+    lp = log_probs.reshape(-1, V)
+    nb = lp.shape[0]
+    cols, nxt, valid = _speculative_burst(nodes, row_pointers, edges, bmax)
+    scatter_idx = torch.where(valid, cols, V)
+    cand_lp = lp.gather(1, cols.clamp(0, V - 1))
+    masked = torch.full((nb, V + 1), NEG_INF, dtype=lp.dtype, device=lp.device)
+    masked.scatter_(1, scatter_idx, torch.where(valid, cand_lp, NEG_INF))
+    next_dense = torch.zeros((nb, V + 1), dtype=torch.int32, device=lp.device)
+    next_dense.scatter_(1, scatter_idx, nxt)
+    return (masked[:, :V].reshape(batch_shape + (V,)),
+            next_dense[:, :V].reshape(batch_shape + (V,)))
+
+
+def _topk_from_candidates(lp_flat, cols, nxt, valid, width: int,
+                          vocab_size: int):
+    """Per-beam dense-rank top-``width`` without the dense row (§8).
+
+    Valid children rank by (lp desc, token asc); the ``width`` smallest
+    missing tokens follow at ``NEG_INF`` (the i-th missing token of sorted
+    distinct columns is ``i + |{j : cols[j] - j <= i}|``).  Slots that do not
+    exist sink to the float minimum.  The stable descending sort keeps the
+    lower index first among equal keys — ``jax.lax.top_k``'s order, on which
+    bit-identity with the dense path rests.
+    """
+    nb, bmax = cols.shape
+    V = vocab_size
+    dev = lp_flat.device
+    minf = torch.finfo(torch.float32).min
+    offsets = torch.arange(bmax, device=dev)
+
+    cand_lp = lp_flat.gather(1, cols.clamp(0, V - 1))
+    real_key = torch.where(valid, cand_lp, minf)
+    real_tok = torch.where(valid, cols, 0)
+
+    adj = torch.where(valid, cols - offsets[None, :], V + bmax + 1)
+    fill_i = torch.arange(width, device=dev)
+    cnt = (adj[:, None, :] <= fill_i[None, :, None]).sum(-1)
+    fill_tok = fill_i[None, :] + cnt
+    in_range = fill_tok < V
+    fill_key = torch.where(in_range, NEG_INF, minf).to(lp_flat.dtype)
+    fill_tok = torch.where(in_range, fill_tok, 0)
+
+    keys = torch.cat([real_key, fill_key], dim=1)
+    toks = torch.cat([real_tok, fill_tok], dim=1).to(torch.int32)
+    nexts = torch.cat(
+        [nxt, torch.zeros((nb, width), dtype=torch.int32, device=dev)], dim=1)
+
+    top_vals, top_idx = torch.sort(keys, dim=1, descending=True, stable=True)
+    top_idx = top_idx[:, :width]
+    return (top_vals[:, :width], toks.gather(1, top_idx),
+            nexts.gather(1, top_idx))
+
+
+def vntk_topk_reference(log_probs, nodes, row_pointers, edges, bmax: int,
+                        vocab_size: int, width: int):
+    """Candidate-compressed Alg. 2: ``(scores, tokens, next_states)``, each
+    ``(..., width)`` — the per-beam dense-rank top-``width``."""
+    V = vocab_size
+    batch_shape = tuple(nodes.shape)
+    lp = log_probs.reshape(-1, V)
+    cols, nxt, valid = _speculative_burst(nodes, row_pointers, edges, bmax)
+    sc, tok, nx = _topk_from_candidates(lp, cols, nxt, valid, width, V)
+    shp = batch_shape + (width,)
+    return sc.reshape(shp), tok.reshape(shp), nx.reshape(shp)

@@ -1,0 +1,119 @@
+"""STATIC constraint backend over one :class:`TransitionMatrix`.
+
+Counterpart of ``repro.decoding.backends.StaticBackend`` (without the
+compressed-slab branches, which are not ported yet).  A backend masks one
+decode step and reports, vocab-aligned, where each token emission leads
+(DESIGN.md §3.1), or — on candidate-compressed levels — each beam's
+dense-rank top-C ``(scores, tokens, next_states)`` (DESIGN.md §8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal, Optional
+
+import torch
+
+from repro_torch.core import dense_mask
+from repro_torch.core.transition_matrix import TransitionMatrix
+from repro_torch.core.vntk import candidate_width
+from repro_torch.kernels import ops as kernel_ops
+
+__all__ = ["Levels", "StaticBackend"]
+
+Levels = Literal["auto", "dense", "sparse"]
+
+
+def _check_step(step: int, sid_length: int) -> None:
+    if step < 0 or step >= sid_length:
+        raise ValueError(f"step {step} outside [0, {sid_length})")
+
+
+def _dense_at(step: int, dense_d: int, levels: Levels) -> bool:
+    """Route ``step`` to the dense bit-packed tables or the sparse VNTK."""
+    dense = step < dense_d
+    if levels == "dense" and not dense:
+        raise ValueError(
+            f"StaticBackend(levels='dense') consulted at sparse step {step} "
+            f"(dense_d={dense_d}); fix the policy plan")
+    if levels == "sparse" and dense:
+        raise ValueError(
+            f"StaticBackend(levels='sparse') consulted at dense step {step} "
+            f"(dense_d={dense_d}); fix the policy plan")
+    return dense
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticBackend:
+    """STATIC enforcement over one :class:`TransitionMatrix`.
+
+    ``levels`` selects the band this instance serves: ``"dense"`` (steps <
+    ``dense_d``), ``"sparse"`` (the VNTK for the rest) or ``"auto"``.
+    ``impl`` is ``None`` (the CUDA kernels on a CUDA matrix, the plain
+    versions on a CPU one) or ``"plain"`` (the plain versions on any device,
+    to hold the kernels against them).  ``fused`` folds the log-softmax into
+    the sparse step.
+    """
+
+    tm: TransitionMatrix
+    impl: Optional[str] = None
+    fused: bool = False
+    levels: Levels = "auto"
+
+    supports_fused = True
+    supports_topk = True
+
+    def __post_init__(self):
+        if self.impl not in kernel_ops.IMPLS:
+            raise ValueError(f"impl must be one of {kernel_ops.IMPLS}, got "
+                             f"{self.impl!r}")
+
+    @property
+    def sid_length(self) -> int:
+        return self.tm.sid_length
+
+    def topk_at(self, step: int) -> bool:
+        """Candidate compression applies to the sparse (CSR) band only."""
+        if self.levels == "dense":
+            return False
+        return step >= min(self.tm.dense_d, self.tm.sid_length)
+
+    def candidate_width(self, beams: int) -> int:
+        return candidate_width(beams, self.tm.vocab_size)
+
+    def _bmax(self, step: int) -> int:
+        return max(self.tm.bmax_for_step(step), 1)
+
+    def mask_step(self, log_probs, nodes, step):
+        """``(masked_lp, next_dense)``, both vocab-aligned ``(..., V)``."""
+        _check_step(step, self.tm.sid_length)
+        if _dense_at(step, self.tm.dense_d, self.levels):
+            if step == 0:
+                return dense_mask.dense_lookup_l0(log_probs, self.tm)
+            return dense_mask.dense_lookup_l1(log_probs, nodes, self.tm)
+        return kernel_ops.vntk(
+            log_probs, nodes, self.tm.row_pointers, self.tm.edges,
+            self._bmax(step), self.tm.vocab_size, impl=self.impl)
+
+    def fused_step(self, logits, nodes, step):
+        """Phases 1-2 in one pass on sparse steps; dense steps normalize
+        then look up."""
+        _check_step(step, self.tm.sid_length)
+        if _dense_at(step, self.tm.dense_d, self.levels):
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            return self.mask_step(lp, nodes, step)
+        return kernel_ops.vntk_fused_logsoftmax(
+            logits, nodes, self.tm.row_pointers, self.tm.edges,
+            self._bmax(step), self.tm.vocab_size, impl=self.impl)
+
+    def topk_step(self, values, nodes, step, width, *, normalized=True):
+        """Per-beam dense-rank top-``width`` ``(scores, tokens, next)``;
+        ``values`` are log-probs, or raw logits when not ``normalized``."""
+        _check_step(step, self.tm.sid_length)
+        if not self.topk_at(step):
+            raise ValueError(
+                f"StaticBackend(levels={self.levels!r}) has no candidate "
+                f"row at dense step {step}; fix the policy plan")
+        return kernel_ops.vntk_topk(
+            values, nodes, self.tm.row_pointers, self.tm.edges,
+            self._bmax(step), self.tm.vocab_size, width,
+            fused_logsoftmax=not normalized, impl=self.impl)

@@ -1,0 +1,137 @@
+"""DecodePolicy — a per-level constraint plan for beam decoding.
+
+Counterpart of ``repro.decoding.policy.DecodePolicy`` for the STATIC
+single-matrix plan: it binds which backend masks each decode level and
+normalizes Phase 1 (log-softmax) unless the backend fuses it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.transition_matrix import TransitionMatrix
+from repro_torch.decoding.backends import StaticBackend
+
+__all__ = ["DecodePolicy", "as_policy"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePolicy:
+    """Per-level backend plan: ``backends[plan[step]]`` masks ``step``.
+
+    ``candidate_topk`` runs every level whose backend supports it through
+    the candidate-compressed step (DESIGN.md §8).
+    """
+
+    backends: tuple
+    plan: tuple
+    candidate_topk: bool = True
+
+    def __post_init__(self):
+        if not self.backends:
+            raise ValueError("DecodePolicy needs at least one backend")
+        if not self.plan:
+            raise ValueError("DecodePolicy needs a non-empty plan")
+        bad = [i for i in self.plan if not 0 <= i < len(self.backends)]
+        if bad:
+            raise ValueError(f"plan references unknown backends: {bad}")
+
+    def backend_for(self, step: int) -> StaticBackend:
+        return self.backends[self.plan[min(step, len(self.plan) - 1)]]
+
+    @property
+    def constraints(self) -> TransitionMatrix:
+        return self.backends[0].tm
+
+    # -- candidate-compressed decoding (DESIGN.md §8) ----------------------
+    def supports_topk_at(self, step: int) -> bool:
+        """True iff decode level ``step`` runs the candidate-compressed path."""
+        if not self.candidate_topk:
+            return False
+        b = self.backend_for(step)
+        return bool(b.supports_topk and b.topk_at(step))
+
+    def candidate_width(self, beams: int, step: int) -> int:
+        """Per-beam candidate count ``C`` for ``step``."""
+        return self.backend_for(step).candidate_width(beams)
+
+    def with_topk(self, enabled: bool) -> "DecodePolicy":
+        return dataclasses.replace(self, candidate_topk=bool(enabled))
+
+    def step_topk(self, logits, nodes, step: int, width: int, *,
+                  normalized: bool = False):
+        """Candidate-compressed Phases 1-2: per-beam dense-rank top-``width``
+        ``(scores, tokens, next_states)``, each ``(..., width)`` — the
+        top-``width`` of the row :meth:`step` would produce, in its flat-index
+        tie order."""
+        if not self.supports_topk_at(step):
+            raise ValueError(
+                f"step {step} has no candidate-compressed backend "
+                f"(plan {self.describe()}); use step() or check "
+                "supports_topk_at first")
+        b = self.backend_for(step)
+        if not normalized and b.fused:
+            return b.topk_step(logits, nodes, step, width, normalized=False)
+        lp = logits if normalized else torch.log_softmax(logits.float(), dim=-1)
+        return b.topk_step(lp, nodes, step, width, normalized=True)
+
+    def step(self, logits, nodes, step: int, *, normalized: bool = False):
+        """Phases 1-2 of Alg. 1: ``(masked_log_probs, next_dense)``, both
+        vocab-aligned."""
+        b = self.backend_for(step)
+        if not normalized and b.fused:
+            return b.fused_step(logits, nodes, step)
+        lp = logits if normalized else torch.log_softmax(logits.float(), dim=-1)
+        return b.mask_step(lp, nodes, step)
+
+    def describe(self) -> str:
+        """Human-readable per-level plan, e.g. ``L0-1:dense-bitpack
+        L2-7:vntk[auto+topk]`` (``auto``: kernel on the card, plain on
+        the CPU)."""
+        def label(b):
+            if b.levels == "dense":
+                return "dense-bitpack"
+            return (f"vntk[{b.impl or 'auto'}{'+fused' if b.fused else ''}"
+                    f"{'+topk' if self.candidate_topk else ''}]")
+
+        parts, start = [], 0
+        for s in range(1, len(self.plan) + 1):
+            if s == len(self.plan) or self.plan[s] != self.plan[start]:
+                band = f"L{start}" if s - start == 1 else f"L{start}-{s - 1}"
+                parts.append(f"{band}:{label(self.backends[self.plan[start]])}")
+                start = s
+        return " ".join(parts)
+
+    # -- factories ---------------------------------------------------------
+    @classmethod
+    def static(cls, tm: TransitionMatrix, *, impl: Optional[str] = None,
+               fused: bool = False, topk: bool = True) -> "DecodePolicy":
+        """STATIC plan: dense bit-packed lookups for levels < ``dense_d``,
+        the VNTK (optionally ``fused``) for the deeper levels; ``topk`` runs
+        the sparse levels candidate-compressed (DESIGN.md §8)."""
+        L, d = tm.sid_length, min(tm.dense_d, tm.sid_length)
+        if d == 0:
+            return cls(backends=(StaticBackend(tm, impl=impl, fused=fused,
+                                               levels="sparse"),),
+                       plan=(0,) * L, candidate_topk=topk)
+        if d >= L:
+            return cls(backends=(StaticBackend(tm, levels="dense"),),
+                       plan=(0,) * L, candidate_topk=topk)
+        return cls(
+            backends=(StaticBackend(tm, levels="dense"),
+                      StaticBackend(tm, impl=impl, fused=fused,
+                                    levels="sparse")),
+            plan=tuple(0 if s < d else 1 for s in range(L)),
+            candidate_topk=topk)
+
+
+def as_policy(obj) -> DecodePolicy:
+    """A :class:`DecodePolicy` as it is, or the STATIC plan of a matrix."""
+    if isinstance(obj, DecodePolicy):
+        return obj
+    if isinstance(obj, TransitionMatrix):
+        return DecodePolicy.static(obj)
+    raise TypeError(f"cannot build a DecodePolicy from {type(obj).__name__}; "
+                    "pass a DecodePolicy or a TransitionMatrix")
