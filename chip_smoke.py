@@ -1,36 +1,63 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--constraints N] [--layers N] [--profile]
+    python3 chip_smoke.py [--constraints N] [--layers N] [--batches N] [--profile]
 
 Phases (any failure raises and the script exits non-zero):
 
-1. build   — compile ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a (one
-             ``nvcc`` per source, all at once) and print the build time and
-             ptxas resource lines.
-2. kernels — every CUDA kernel function against its plain PyTorch version
-             on the card, at the main path's shapes (nb = B*M = 140 rows,
-             V = 2048, C = 72, each sparse level's bmax and trie nodes) and
-             at stress shapes (prime nb, a bmax >= 512 root row of a
-             dense_d=0 trie, rows parked at the sink, tie-heavy logits).
-             Tokens and next states must be equal; scores equal when not
-             fused, within rtol/atol 1e-5 when fused.  Device times come
-             from CUDA graphs of back-to-back calls timed by CUDA events.
-             The golden traces of ``tests/golden`` are replayed through the
-             kernels as a small-input reference.
-3. main    — ``static_gr.CONFIG`` (26 layers, d_model 3072, GQA 24/8, bf16)
-             with seeded random weights and a trie of ``--constraints``
-             random SIDs (default 20M), serving B=2 requests of 256-token
-             histories at M=70, L=8 through ``GenerativeRetriever.retrieve``
-             under four STATIC policies (topk / topk fused / vocab-aligned /
-             vocab-aligned fused).  Every live beam must be in the constraint
-             set, each policy's kernel must launch exactly L - dense_d = 6
-             times per retrieve (the launch counters are zeroed just before
-             this phase), and one batch rerun with the plain constraint step
-             (``impl="plain"``) must give equal SIDs and scores.
-4. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
-             per-kernel, then the last line
-             ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+1. build    — compile ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a (one
+              ``nvcc`` per source, all at once) and print the build time and
+              ptxas resource lines.
+2. indexes  — a catalog of ``--constraints`` items (default 20M) with SIDs
+              uniform over V=2048, L=8, ``age_days`` uniform over [0, 90) and
+              ``category`` uniform over 8 (the reference's
+              ``synthetic_catalog``).  The trie of every SID serves the
+              single-matrix path; the ``multi_constraint`` scenario's five
+              slots (``fresh_22/45/67/90``: age <= 22.5/45/67.5/90;
+              ``cat_01``: categories 0 and 1) are stacked into a
+              ``ConstraintStore`` at dense_d=2 and headroom 0.5.
+3. kernels  — every CUDA kernel function against its plain PyTorch version
+              on the card.  Single-matrix functions at the single path's
+              shapes (nb = 2*70 rows, V = 2048, C = 72, each sparse level's
+              bmax and trie nodes) and stress shapes (prime nb, a bmax >= 512
+              root row of a dense_d=0 trie, rows at the sink, tie-heavy
+              logits).  Stacked functions at the stacked path's shapes (nb =
+              5*70 rows, one request per slot, each row on its own member's
+              level), at stress shapes (prime nb, rows at the sink, ids out
+              of range that the kernels clamp, ties) and at an offset stress:
+              a store of ten copies of the 20M trie (~14.7 GB, freed after)
+              whose last member's deepest edges lie past 2^31 int32 elements
+              from the store's base, where tokens and next states must equal
+              the single-matrix kernel's.  Tokens and next states must be
+              equal; scores equal when not fused, within rtol/atol 1e-5 when
+              fused.  Device times come from CUDA graphs of back-to-back
+              calls timed by CUDA events.  The golden traces of
+              ``tests/golden`` (``stacked`` included) are replayed through
+              the kernels, and the bf16 attention products on the card are
+              held against the CPU's.
+4. single   — ``static_gr.CONFIG`` (26 layers, d_model 3072, GQA 24/8, bf16)
+              with seeded random weights serving B=2 requests of 256-token
+              histories at M=70, L=8 through ``GenerativeRetriever.retrieve``
+              under four single-matrix policies (topk / topk fused /
+              vocab-aligned / vocab-aligned fused).  Every live beam must be
+              in the constraint set, each policy's kernel must launch exactly
+              L - dense_d = 6 times per retrieve (the launch counters are
+              zeroed just before this phase and read just after), and one
+              batch rerun with the plain constraint step (``impl="plain"``)
+              must give equal SIDs and scores.
+5. stacked  — the same model serving B=5 requests, request i under slot i
+              (``constraint_ids = [0..4]``), through four stacked policies.
+              Every live beam of row i must be in slot i's SID set; each
+              policy's stacked kernel must launch exactly 6 times per
+              retrieve and no single-matrix kernel at all (counters zeroed
+              just before, read just after).  Row 0 must equal, bit for bit,
+              the single-matrix retrieve over ``store.member(0)`` of the same
+              batch; a plain rerun must give equal SIDs and scores; a hot
+              swap of a re-aged ``fresh_22`` must be reported hot and keep
+              row 0 compliant with the new set.
+6. report   — the card's ``nvidia-smi`` name and power limit, one JSON line
+              per kernel function, then the last line
+              ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Without CUDA, or without the repository's ``src/`` beside it, the script
 exits non-zero before printing any result.
@@ -44,25 +71,35 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+SLOTS = {  # the multi_constraint scenario's slots (name: predicate)
+    "fresh_22": lambda age, cat: age <= 22.5,
+    "fresh_45": lambda age, cat: age <= 45.0,
+    "fresh_67": lambda age, cat: age <= 67.5,
+    "fresh_90": lambda age, cat: age <= 90.0,
+    "cat_01": lambda age, cat: np.isin(cat, (0, 1)),
+}
+HEADROOM = 0.5  # the registry's and the scenario's default
 
 
 def parse_args():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--constraints", type=int, default=None,
-                    help="constraint-set size (default: static_gr.N_CONSTRAINTS)")
+                    help="catalog size (default: static_gr.N_CONSTRAINTS)")
     ap.add_argument("--layers", type=int, default=None,
-                    help="cut the model's depth (default: the config's 26)")
+                    help="cut the single-matrix path's depth (default: the "
+                         "config's 26; the stacked path always runs all 26)")
     ap.add_argument("--batches", type=int, default=3,
                     help="timed request batches per policy (after one warm-up)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one retrieve with torch.profiler and "
-                         "print device time by kernel")
+                    help="also trace one retrieve of each path with "
+                         "torch.profiler and print device time by kernel")
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args()
 
@@ -97,7 +134,58 @@ def device_ms(fn, iters: int = 50, reps: int = 5) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
+# phase 2: the indexes
+# ---------------------------------------------------------------------------
+def build_indexes(rng, n):
+    """The catalog's single trie and its stacked store of the five slots.
+
+    Catalog items are kept in SID order, so every slot's SID set is a sorted
+    subset and the trie builder skips its sort.
+    """
+    from repro_torch.configs import static_gr
+    from repro_torch.constraints import ConstraintStore
+    from repro_torch.core.transition_matrix import TransitionMatrix
+    from repro_torch.core.trie import build_flat_trie, sorted_unique_sids
+
+    V, L, d = static_gr.SID_VOCAB, static_gr.SID_LENGTH, static_gr.DENSE_D
+    t0 = time.time()
+    sids = sorted_unique_sids(rng.integers(0, V, size=(n, L)))
+    ft = build_flat_trie(sids, V, dense_d=d)
+    tm = TransitionMatrix.from_flat_trie(ft, device="cuda")
+    log(f"  trie of {n} random SIDs: {ft.n_states} states, {ft.n_edges} "
+        f"edges, {tm.nbytes() / 1e9:.3f} GB on the card, level bmax "
+        f"{list(map(int, ft.level_bmax))} ({time.time() - t0:.1f}s host build)")
+
+    t0 = time.time()
+    age = rng.uniform(0.0, 90.0, sids.shape[0])
+    cat = rng.integers(0, 8, sids.shape[0])
+    masks = {name: pred(age, cat) for name, pred in SLOTS.items()}
+    todo = [name for name, m in masks.items() if not m.all()]
+    with ThreadPoolExecutor(4) as pool:  # numpy releases the GIL in sorts
+        built = dict(zip(todo, pool.map(
+            lambda name: build_flat_trie(sids[masks[name]], V, dense_d=d),
+            todo)))
+    fts = {name: built.get(name, ft) for name in SLOTS}  # all items: the trie
+    mats = [tm if fts[name] is ft else TransitionMatrix.from_flat_trie(
+        fts[name], device="cuda") for name in SLOTS]
+    store = ConstraintStore.from_matrices(mats, headroom=HEADROOM,
+                                          device="cuda")
+    del mats
+    torch.cuda.synchronize()
+    log(f"  stacked store of {len(SLOTS)} slots "
+        f"({', '.join(f'{k}: {int(m.sum())}' for k, m in masks.items())} SIDs)"
+        f" at headroom {HEADROOM}: {store.n_states} states and "
+        f"{store.n_edges} edge rows per member, level bmax "
+        f"{list(store.level_bmax)}, {store.nbytes() / 1e9:.3f} GB on the "
+        f"card ({time.time() - t0:.1f}s host build)")
+    slot_sids = [np.asfortranarray(sids[m]) for m in masks.values()]
+    offsets = [fts[name].level_offsets for name in SLOTS]
+    return dict(sids=sids, ft=ft, tm=tm, store=store, slot_sids=slot_sids,
+                level_offsets=offsets, sorted_sids=np.asfortranarray(sids))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 KERNELS = {
     # name: (kernel, fused, TPU function it replaces)
@@ -105,20 +193,37 @@ KERNELS = {
     "vntk_topk_fused": ("vntk_topk", True, "src/repro/kernels/vntk.py:1021"),
     "vntk_mask": ("vntk_mask", False, "src/repro/kernels/vntk.py:915"),
     "vntk_mask_fused": ("vntk_mask", True, "src/repro/kernels/vntk.py:940"),
+    "vntk_stacked_topk": ("vntk_stacked_topk", False,
+                          "src/repro/kernels/vntk.py:1198"),
+    "vntk_stacked_topk_fused": ("vntk_stacked_topk", True,
+                                "src/repro/kernels/vntk.py:1198"),
+    "vntk_stacked_mask": ("vntk_stacked_mask", False,
+                          "src/repro/kernels/vntk.py:965"),
+    "vntk_stacked_mask_fused": ("vntk_stacked_mask", True,
+                                "src/repro/kernels/vntk.py:993"),
 }
 SOURCE = "src/repro_torch/kernels/csrc/vntk.cu"
 
 
-def needed_bytes(kernel, fused, nodes_np, rp_np, bmax, V, width) -> int:
-    """Bytes the function must move for these inputs: the row-pointer pairs
-    and valid edges it reads, the log-probs of the valid slots (the whole
-    row when it normalizes), and its outputs, each once."""
-    n_child = rp_np[nodes_np + 1].astype(np.int64) - rp_np[nodes_np]
-    n_real = int(np.minimum(np.maximum(n_child, 0), bmax).sum())
-    nb = nodes_np.shape[0]
-    reads = nb * 4 + nb * 8 + n_real * 8
+def n_child(rp, nodes, cids=None) -> np.ndarray:
+    """Children of each row's node (of its member when stacked)."""
+    n = nodes.long()
+    if cids is None:
+        return (rp[n + 1] - rp[n]).cpu().numpy()
+    k = cids.long().clamp(0, rp.shape[0] - 1)
+    return (rp[k, n + 1] - rp[k, n]).cpu().numpy()
+
+
+def needed_bytes(topk, fused, stacked, children, bmax, V, width) -> int:
+    """Bytes the function must move for these inputs: the constraint ids
+    (stacked), the nodes, the row-pointer pairs and valid edges it reads,
+    the log-probs of the valid slots (the whole row when it normalizes), and
+    its outputs, each once."""
+    n_real = int(np.minimum(np.maximum(children, 0), bmax).sum())
+    nb = children.shape[0]
+    reads = nb * 4 * (2 if stacked else 1) + nb * 8 + n_real * 8
     reads += nb * V * 4 if fused else n_real * 4
-    writes = nb * width * 12 if kernel == "vntk_topk" else nb * V * 8
+    writes = nb * width * 12 if topk else nb * V * 8
     return reads + writes
 
 
@@ -130,44 +235,58 @@ class KernelCheck:
 
         self.name = name
         self.kernel, self.fused, self.replaces = KERNELS[name]
+        self.stacked = "stacked" in self.kernel
+        self.topk = self.kernel.endswith("topk")
         self.cuda = getattr(kv, f"{self.kernel}_cuda")
         self.plain = getattr(kv, f"{self.kernel}_plain")
         self.max_abs_err = 0.0
         self.times = []  # (ms, plain_ms, bound_ms) per main-path level
 
-    def args(self, values, nodes, tm, bmax, width):
-        a = (values, nodes, tm.row_pointers, tm.edges, bmax, tm.vocab_size)
-        return a + ((width,) if self.kernel == "vntk_topk" else ()) + (self.fused,)
+    def args(self, values, nodes, cids, rp, edges, bmax, V, width):
+        head = (values, nodes) + ((cids,) if self.stacked else ())
+        return (head + (rp, edges, bmax, V) + ((width,) if self.topk else ())
+                + (self.fused,))
 
-    def compare(self, values, nodes, tm, bmax, width, label):
-        a = self.args(values, nodes, tm, bmax, width)
+    def compare(self, label, *a, want=None):
+        """Kernel against the plain version (or against ``want``, the
+        outputs of another kernel on the same rows)."""
+        a = self.args(*a)
         got = self.cuda(*a)
-        want = self.plain(*a)
+        want = self.plain(*a) if want is None else want
         torch.cuda.synchronize()
         for g, w in zip(got[1:], want[1:]):  # tokens / next states
             if not torch.equal(g, w.to(g.dtype)):
                 raise AssertionError(f"{self.name} [{label}]: integer outputs "
-                                     "differ from the plain version")
+                                     "differ")
         g, w = got[0], want[0].float()
         err = float((g - w).abs().max()) if g.numel() else 0.0
         self.max_abs_err = max(self.max_abs_err, err)
         ok = (torch.allclose(g, w, rtol=1e-5, atol=1e-5) if self.fused
               else torch.equal(g, w))
         if not ok:
-            raise AssertionError(f"{self.name} [{label}]: scores differ from "
-                                 f"the plain version (max abs err {err:g})")
+            raise AssertionError(f"{self.name} [{label}]: scores differ "
+                                 f"(max abs err {err:g})")
+        return got
 
-    def time(self, values, nodes, tm, bmax, width, nodes_np, rp_np):
-        a = self.args(values, nodes, tm, bmax, width)
+    def time(self, values, nodes, cids, rp, edges, bmax, V, width):
+        a = self.args(values, nodes, cids, rp, edges, bmax, V, width)
         ms = device_ms(lambda: self.cuda(*a))
         plain_ms = device_ms(lambda: self.plain(*a), iters=10)
-        bound = needed_bytes(self.kernel, self.fused, nodes_np, rp_np, bmax,
-                             tm.vocab_size, width) / HBM_BYTES_PER_S * 1e3
+        children = n_child(rp, nodes, cids if self.stacked else None)
+        bound = needed_bytes(self.topk, self.fused, self.stacked, children,
+                             bmax, V, width) / HBM_BYTES_PER_S * 1e3
         self.times.append((ms, plain_ms, bound))
 
+    def summary(self, levels):
+        ms, plain_ms, bound = np.mean(self.times, axis=0)
+        log(f"  {self.name}: equal to plain at levels {levels} and stress "
+            f"shapes; max abs err {self.max_abs_err:.3g}; {ms * 1e3:.2f} us "
+            f"(plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us) "
+            f"per launch, mean over levels")
 
-def level_nodes(rng, ft, level, nb):
-    lo, hi = int(ft.level_offsets[level]), int(ft.level_offsets[level + 1])
+
+def level_nodes(rng, offsets, level, nb):
+    lo, hi = int(offsets[level]), int(offsets[level + 1])
     return rng.integers(lo, hi, nb).astype(np.int32)
 
 
@@ -180,50 +299,124 @@ def make_values(rng, nb, V, fused, ties=False):
     return x if fused else torch.log_softmax(x, dim=-1)
 
 
-def phase_kernels(rng, ft, tm, sids, M, checks):
+def cuda_ints(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+
+def phase_kernels(rng, idx, M, checks):
+    """The single-matrix functions at the single path's shapes and stress
+    shapes."""
     from repro_torch.core.trie import build_flat_trie
     from repro_torch.core.transition_matrix import TransitionMatrix
     from repro_torch.core.vntk import candidate_width
 
+    ft, tm = idx["ft"], idx["tm"]
     V, L, d = ft.vocab_size, ft.sid_length, ft.dense_d
     nb, C = 2 * M, candidate_width(M, ft.vocab_size)
-    rp_np = ft.row_pointers
+    tables = (tm.row_pointers, tm.edges)
     # the root row of a dense_d=0 trie: one CSR row of every first token
-    ft0 = build_flat_trie(sids[:200_000], V, dense_d=0)
+    sids = idx["sids"]  # ~200k of them, spread over the sorted catalog
+    ft0 = build_flat_trie(sids[::max(1, len(sids) // 200_000)], V, dense_d=0)
     tm0 = TransitionMatrix.from_flat_trie(ft0, device="cuda")
     for chk in checks:
         for level in range(d, L):
             bmax = int(ft.level_bmax[level])
-            nodes_np = level_nodes(rng, ft, level, nb)
-            nodes = torch.from_numpy(nodes_np).cuda()
+            nodes = cuda_ints(level_nodes(rng, ft.level_offsets, level, nb))
             values = make_values(rng, nb, V, chk.fused)
-            chk.compare(values, nodes, tm, bmax, C, f"level {level}")
-            chk.time(values, nodes, tm, bmax, C, nodes_np, rp_np)
+            a = (values, nodes, None, *tables, bmax, V, C)
+            chk.compare(f"level {level}", *a)
+            chk.time(*a)
         # stress: prime row count with a quarter of the rows at the sink,
         # tie-heavy values, and a bmax >= 512 root row
-        nodes_np = level_nodes(rng, ft, d, 139)
+        nodes_np = level_nodes(rng, ft.level_offsets, d, 139)
         nodes_np[rng.random(139) < 0.25] = 0
         values = make_values(rng, 139, V, chk.fused, ties=True)
-        chk.compare(values, torch.from_numpy(nodes_np).cuda(), tm,
-                    int(ft.level_bmax[d]), C, "prime nb, sink rows, ties")
+        chk.compare("prime nb, sink rows, ties", values, cuda_ints(nodes_np),
+                    None, *tables, int(ft.level_bmax[d]), V, C)
         bmax0 = int(ft0.level_bmax[0])
         if bmax0 < 512:
             raise AssertionError(f"stress root row has bmax {bmax0} < 512")
         nodes_np = np.ones(nb, np.int32)
         nodes_np[::7] = 0
-        chk.compare(make_values(rng, nb, V, chk.fused), torch.from_numpy(
-            nodes_np).cuda(), tm0, bmax0, C, f"bmax {bmax0} root row")
-        ms, plain_ms, bound = np.mean(chk.times, axis=0)
-        log(f"  {chk.name}: equal to plain at levels {d}-{L - 1} and stress "
-            f"shapes; max abs err {chk.max_abs_err:.3g}; {ms * 1e3:.2f} us "
-            f"(plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us) "
-            f"per launch, mean over levels")
+        chk.compare(f"bmax {bmax0} root row", make_values(rng, nb, V, chk.fused),
+                    cuda_ints(nodes_np), None, tm0.row_pointers, tm0.edges,
+                    bmax0, V, C)
+        chk.summary(f"{d}-{L - 1}")
+
+
+def stacked_rows(rng, offsets, cids, level):
+    """One node per row from its own member's level range."""
+    return np.array([level_nodes(rng, offsets[min(max(k, 0), len(offsets) - 1)],
+                                 level, 1)[0] for k in cids], np.int32)
+
+
+def phase_stacked_kernels(rng, idx, M, checks, full_size):
+    """The stacked functions at the stacked path's shapes, stress shapes and
+    the 64-bit member offset stress (which passes 2^31 int32 elements only
+    at the full catalog size)."""
+    from repro_torch.constraints import ConstraintStore
+    from repro_torch.core.vntk import candidate_width
+    from repro_torch.kernels import vntk as kv
+
+    store, offsets, ft = idx["store"], idx["level_offsets"], idx["ft"]
+    V, L, d, K = store.vocab_size, store.sid_length, store.dense_d, store.num_sets
+    nb, C = K * M, candidate_width(M, V)
+    tables = (store.row_pointers, store.edges)
+    cids_np = np.repeat(np.arange(K, dtype=np.int32), M)  # a request per slot
+    for chk in checks:
+        for level in range(d, L):
+            bmax = store.bmax_for_step(level)
+            nodes = cuda_ints(stacked_rows(rng, offsets, cids_np, level))
+            values = make_values(rng, nb, V, chk.fused)
+            a = (values, nodes, cuda_ints(cids_np), *tables, bmax, V, C)
+            chk.compare(f"level {level}", *a)
+            chk.time(*a)
+        # stress: prime nb, mixed ids (two out of range: the kernel clamps
+        # them as the plain version does), a quarter at the sink, ties
+        stress = rng.integers(0, K, 349).astype(np.int32)
+        stress[:2] = (-1, K + 2)
+        nodes_np = stacked_rows(rng, offsets, stress, d)
+        nodes_np[rng.random(349) < 0.25] = 0
+        chk.compare("prime nb, sink rows, clamped ids, ties",
+                    make_values(rng, 349, V, chk.fused, ties=True),
+                    cuda_ints(nodes_np), cuda_ints(stress), *tables,
+                    store.bmax_for_step(d), V, C)
+    # offset stress: ten copies of the trie at headroom 0; rows on the last
+    # member's deepest level, whose edges lie past 2^31 int32 elements
+    t0 = time.time()
+    big = ConstraintStore.from_matrices([idx["tm"]] * 10, headroom=0.0,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    deep = L - 1
+    nodes = cuda_ints(level_nodes(rng, ft.level_offsets, deep, nb))
+    cids = torch.full_like(nodes, 9)
+    first = int(big.row_pointers[9, nodes.long()].min())
+    elem = 9 * big.edges.shape[1] * 2 + 2 * first
+    if full_size and elem < 2 ** 31:
+        raise AssertionError(f"offset stress reaches only int32 element {elem}")
+    bmax = big.bmax_for_step(deep)
+    for chk in checks:
+        values = make_values(rng, nb, V, chk.fused)
+        single = getattr(kv, chk.kernel.replace("_stacked", "") + "_cuda")
+        want = single(values, nodes, idx["tm"].row_pointers, idx["tm"].edges,
+                      bmax, V, *((C,) if chk.topk else ()), chk.fused)
+        a = (values, nodes, cids, big.row_pointers, big.edges, bmax, V, C)
+        chk.compare("offset stress vs single-matrix kernel", *a, want=want)
+        chk.compare("offset stress vs plain", *a)
+        chk.summary(f"{d}-{L - 1}")
+    log(f"  offset stress: {big.nbytes() / 1e9:.3f} GB store of 10 members, "
+        f"rows on member 9's level {deep} from int32 element {elem} "
+        f"({'past' if elem >= 2 ** 31 else 'below'} 2^31) equal to the "
+        f"single-matrix kernel ({time.time() - t0:.1f}s)")
+    del big
+    torch.cuda.empty_cache()
 
 
 def phase_golden():
     """Replay tests/golden through the kernels: trace tokens must equal the
     frozen reference traces and scores agree within rtol 1e-6 (1e-5 when
     the kernel normalizes)."""
+    from repro_torch.constraints import ConstraintStore
     from repro_torch.core.beam_search import beam_search
     from repro_torch.core.transition_matrix import TransitionMatrix
     from repro_torch.decoding import DecodePolicy
@@ -236,53 +429,144 @@ def phase_golden():
     L = table.shape[0]
     tm = TransitionMatrix.load(os.path.join(golden, "trie_small.npz"))
     tm_d0 = TransitionMatrix.from_sids(inputs["sids"], V, dense_d=0)
+    store = ConstraintStore.from_matrices(
+        [TransitionMatrix.from_sids(inputs["decoy"], V, dense_d=2), tm],
+        headroom=0.2)  # regenerate.py's store; every row on member 1
 
     def logits_fn(carry, last, step):
         return table[step][last.long()], carry
 
-    for name, policy in (("static", DecodePolicy.static(tm)),
-                         ("static_fused", DecodePolicy.static(tm, fused=True)),
-                         ("static_d0", DecodePolicy.static(tm_d0))):
+    ones = np.ones(B, np.int32)
+    for name, policy, trace, cids in (
+            ("static", DecodePolicy.static(tm), "static", None),
+            ("static_fused", DecodePolicy.static(tm, fused=True),
+             "static_fused", None),
+            ("static_d0", DecodePolicy.static(tm_d0), "static_d0", None),
+            ("stacked", DecodePolicy.stacked(store), "stacked", ones),
+            ("stacked_fused", DecodePolicy.stacked(store, fused=True),
+             "stacked", ones)):
         for topk in (True, False):
             _, _, tr = beam_search(logits_fn, None, B, M, L,
-                                   policy.with_topk(topk), return_trace=True)
+                                   policy.with_topk(topk), constraint_ids=cids,
+                                   return_trace=True)
             if not np.array_equal(tr.tokens.cpu().numpy(),
-                                  traces[f"{name}_trace_tokens"]):
+                                  traces[f"{trace}_trace_tokens"]):
                 raise AssertionError(f"golden {name} topk={topk}: trace tokens")
-            tol = (dict(rtol=1e-5, atol=1e-5) if name == "static_fused"
+            tol = (dict(rtol=1e-5, atol=1e-5) if "fused" in name
                    else dict(rtol=1e-6))  # the fused kernel's own lse
             np.testing.assert_allclose(tr.scores.cpu().numpy(),
-                                       traces[f"{name}_trace_scores"],
+                                       traces[f"{trace}_trace_scores"],
                                        err_msg=name, **tol)
-    log("  golden traces static/static_fused/static_d0 (topk and dense "
-        "advance) reproduced through the kernels")
+    log("  golden traces static/static_fused/static_d0/stacked (and stacked "
+        "through the fused kernels; topk and dense advance) reproduced "
+        "through the kernels")
+
+
+def phase_attention(rng):
+    """The bf16 attention products on the card (float32 results of bf16
+    operands) against the same functions on the CPU (exact upcasts, held
+    against the JAX reference by tests/test_torch_transformer.py).
+
+    cuBLAS sums the float32 scores in another order than the CPU, so a
+    probability near a bf16 rounding boundary can round the other way when
+    it is cast for the PV product, and the output's own bf16 rounding can
+    then flip too.  Hence the tolerance: 1e-4 on average, and per element at
+    most one bf16 ulp in [2, 4) (2**-6; early prefill rows average a few
+    unit-normal values and reach that range).  Scores rounded to bf16 before
+    the softmax, the fault this guards against, are off by ~2e-2 at most
+    and ~3e-3 on average."""
+    from repro_torch.models import attention
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(torch.bfloat16)
+
+    def diff(got, want):
+        d = (got.float().cpu() - want.float()).abs()
+        return float(d.max()), float(d.mean())
+
+    q, k, v = bf16(8, 1, 24, 128), bf16(8, 265, 8, 128), bf16(8, 265, 8, 128)
+    pos = torch.arange(265)
+    want = attention.decode_attention(q, k, v, pos, 264)
+    got = attention.decode_attention(q.cuda(), k.cuda(), v.cuda(), pos.cuda(),
+                                     264)
+    dec = diff(got, want)
+    q, k, v = bf16(2, 256, 24, 128), bf16(2, 256, 8, 128), bf16(2, 256, 8, 128)
+    want = attention.chunked_causal_attention(q, k, v)
+    got = attention.chunked_causal_attention(q.cuda(), k.cuda(), v.cuda())
+    pre = diff(got, want)
+    log(f"  bf16 attention on the card vs the CPU: decode max/mean abs diff "
+        f"{dec[0]:g}/{dec[1]:g}, prefill {pre[0]:g}/{pre[1]:g}")
+    if max(dec[0], pre[0]) > 2.0 ** -6 or max(dec[1], pre[1]) >= 1e-4:
+        raise AssertionError("bf16 attention products differ from the CPU's")
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phases 4-5: the main paths
 # ---------------------------------------------------------------------------
-def phase_main(args, rng, tm, sorted_sids):
+def check_batch(name, beams, scores, shape):
+    if beams.shape != shape or not np.all(np.isfinite(scores)):
+        raise AssertionError(f"{name}: bad output shape/scores")
+    if np.any(np.diff(scores, axis=1) > 0):
+        raise AssertionError(f"{name}: beams not score-sorted")
+
+
+def check_compliance(name, sorted_sids, beams, scores):
+    from repro_torch.launch.serve import compliance
+
+    members, live = compliance(sorted_sids, beams, scores)
+    if members != live or live == 0:
+        raise AssertionError(f"{name}: {members}/{live} live beams in the "
+                             "constraint set")
+
+
+def run_policies(policies, make_retriever, hists, check, n_sparse):
+    """Serve every batch under every policy; returns the first batch's
+    outputs and the median retrieve ms per policy.  Each policy must launch
+    its counter exactly ``n_sparse`` times per retrieve and nothing else."""
+    from repro_torch.kernels import vntk as kv
+
+    first, median_ms = {}, {}
+    for name, (policy, counter) in policies.items():
+        r = make_retriever(policy)
+        before = dict(kv.LAUNCHES)
+        lat = []
+        for i, hist in enumerate(hists):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            beams, scores = r(hist)  # host arrays: synchronized
+            if i:
+                lat.append(time.perf_counter() - t0)
+            else:
+                first[name] = (beams, scores)
+            check(name, beams, scores)
+        rose = {k: kv.LAUNCHES[k] - before[k] for k in kv.LAUNCHES}
+        want = {k: (n_sparse * len(hists) if k == counter else 0) for k in rose}
+        if rose != want:
+            raise AssertionError(f"{name}: launches {rose}, expected {want}")
+        median_ms[name] = float(np.median(lat)) * 1e3
+        log(f"  {name} [{policy.describe()}]: median retrieve "
+            f"{median_ms[name]:.2f} ms over {len(lat)} batches; 100% "
+            f"compliance; {counter} launched {n_sparse} times per retrieve")
+    return first, median_ms
+
+
+def phase_single(args, rng, params, cfg, idx):
     from repro_torch.configs import static_gr
     from repro_torch.decoding import DecodePolicy
     from repro_torch.kernels import vntk as kv
-    from repro_torch.launch.serve import compliance
     from repro_torch.models import transformer
     from repro_torch.serving import GenerativeRetriever
 
-    cfg = static_gr.CONFIG
+    tm = idx["tm"]
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        params = dict(params, layers=params["layers"][:args.layers])
     L, V, M, B = (static_gr.SID_LENGTH, static_gr.SID_VOCAB,
                   static_gr.BEAM_SIZE, 2)
-    t0 = time.time()
-    params = transformer.init_params(cfg, seed=args.seed, device="cuda")
-    torch.cuda.synchronize()
-    log(f"  {cfg.name}: {cfg.n_layers} layers x {cfg.d_model}, "
-        f"{cfg.param_count() / 1e9:.2f}B params in {cfg.dtype} "
-        f"({time.time() - t0:.1f}s init)")
+    log(f"  {cfg.name}: {cfg.n_layers} layers, B={B}, M={M}, L={L}")
     hists = [rng.integers(0, cfg.vocab_size, (B, static_gr.HISTORY_LEN))
              for _ in range(args.batches + 1)]
-    n_sparse = L - tm.dense_d
     policies = {  # name: (policy, kernel counter it must reach)
         "static": (DecodePolicy.static(tm), "vntk_topk"),
         "static_fused": (DecodePolicy.static(tm, fused=True),
@@ -291,46 +575,24 @@ def phase_main(args, rng, tm, sorted_sids):
         "static_fused_notopk": (DecodePolicy.static(tm, fused=True, topk=False),
                                 "vntk_mask_fused"),
     }
-    first, median_ms = {}, {}
-    kv.reset_launches()  # the main path's run starts here
-    for name, (policy, counter) in policies.items():
+
+    def check(name, beams, scores):
+        check_batch(name, beams, scores, (B, M, L))
+        check_compliance(name, idx["sorted_sids"], beams, scores)
+
+    def make(policy):
         r = GenerativeRetriever(params, cfg, policy, L, V, beam_size=M)
-        before = dict(kv.LAUNCHES)
-        lat = []
-        for i, hist in enumerate(hists):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            beams, scores = r.retrieve(hist)  # host arrays: synchronized
-            if i:
-                lat.append(time.perf_counter() - t0)
-            else:
-                first[name] = (beams, scores)
-            if beams.shape != (B, M, L) or not np.all(np.isfinite(scores)):
-                raise AssertionError(f"{name}: bad output shape/scores")
-            if np.any(np.diff(scores, axis=1) > 0):
-                raise AssertionError(f"{name}: beams not score-sorted")
-            members, live = compliance(sorted_sids, beams, scores)
-            if members != live or live == 0:
-                raise AssertionError(f"{name}: {members}/{live} live beams in "
-                                     "the constraint set")
-        rose = {k: kv.LAUNCHES[k] - before[k] for k in kv.LAUNCHES}
-        want = {k: (n_sparse * len(hists) if k == counter else 0) for k in rose}
-        if rose != want:
-            raise AssertionError(f"{name}: launches {rose}, expected {want}")
-        median_ms[name] = float(np.median(lat)) * 1e3
-        log(f"  {name} [{policy.describe()}]: median retrieve "
-            f"{median_ms[name]:.2f} ms over {len(lat)} batches of "
-            f"B={B} (M={M}, L={L}); 100% compliance; {counter} launched "
-            f"{n_sparse} times per retrieve")
-    launches = dict(kv.LAUNCHES)  # the main path's run ends here
-    for name in KERNELS:
-        if launches[name] == 0:
-            raise AssertionError(f"{name} never launched on the main path")
+        return r.retrieve
+
+    kv.reset_launches()  # the single path's run starts here
+    first, median_ms = run_policies(policies, make, hists, check, L - tm.dense_d)
+    launches = dict(kv.LAUNCHES)  # ... and ends here
+    for _, counter in policies.values():
+        if launches[counter] == 0:
+            raise AssertionError(f"{counter} never launched on the single path")
 
     # per-step split of one retrieve: prefill alone vs the whole retrieve
-    r = GenerativeRetriever(params, cfg, policies["static"][0], L, V,
-                            beam_size=M)
-    hist_t = torch.as_tensor(hists[1], device="cuda")
+    hist_t = torch.as_tensor(hists[1], device=params["emb"].device)
     pre = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -347,27 +609,125 @@ def phase_main(args, rng, tm, sorted_sids):
 
     # the same batch with the plain constraint step on the same card/model
     for name in ("static", "static_notopk"):
-        policy = policies[name][0]
-        plain = DecodePolicy.static(tm, impl="plain", topk=policy.candidate_topk)
-        beams, scores = GenerativeRetriever(
-            params, cfg, plain, L, V, beam_size=M).retrieve(hists[0])
+        plain = DecodePolicy.static(tm, impl="plain",
+                                    topk=policies[name][0].candidate_topk)
+        beams, scores = make(plain)(hists[0])
         if not (np.array_equal(beams, first[name][0])
                 and np.array_equal(scores, first[name][1])):
             raise AssertionError(f"{name}: plain constraint step disagrees")
         log(f"  {name}: plain constraint step gives equal SIDs and scores")
 
     if args.profile:
-        profile_retrieve(r, hists[1], median_ms["static"])
+        r = GenerativeRetriever(params, cfg, policies["static"][0], L, V,
+                                beam_size=M)
+        profile_retrieve(lambda: r.retrieve(hists[1]), median_ms["static"])
     return launches
 
 
-def profile_retrieve(r, hist, retrieve_ms):
+def phase_stacked(args, rng, params, cfg, idx):
+    from repro_torch.configs import static_gr
+    from repro_torch.core.transition_matrix import TransitionMatrix
+    from repro_torch.core.trie import build_flat_trie
+    from repro_torch.decoding import DecodePolicy
+    from repro_torch.kernels import vntk as kv
+    from repro_torch.serving import GenerativeRetriever
+
+    store = idx["store"]
+    L, V, M = static_gr.SID_LENGTH, static_gr.SID_VOCAB, static_gr.BEAM_SIZE
+    B = store.num_sets
+    cids = np.arange(B, dtype=np.int32)  # request i under slot i
+    log(f"  {cfg.name}: {cfg.n_layers} layers, B={B} (one request per "
+        f"slot), M={M}, L={L}")
+    hists = [rng.integers(0, cfg.vocab_size, (B, static_gr.HISTORY_LEN))
+             for _ in range(args.batches + 1)]
+    policies = {
+        "stacked": (DecodePolicy.stacked(store), "vntk_stacked_topk"),
+        "stacked_fused": (DecodePolicy.stacked(store, fused=True),
+                          "vntk_stacked_topk_fused"),
+        "stacked_notopk": (DecodePolicy.stacked(store, topk=False),
+                           "vntk_stacked_mask"),
+        "stacked_fused_notopk": (DecodePolicy.stacked(store, fused=True,
+                                                      topk=False),
+                                 "vntk_stacked_mask_fused"),
+    }
+    slot_sids = list(idx["slot_sids"])
+
+    def check(name, beams, scores):
+        check_batch(name, beams, scores, (B, M, L))
+        for i in range(B):
+            check_compliance(f"{name} row {i}", slot_sids[i],
+                             beams[i:i + 1], scores[i:i + 1])
+
+    def make(policy):
+        r = GenerativeRetriever(params, cfg, policy, L, V, beam_size=M)
+        return lambda hist: r.retrieve(hist, cids)
+
+    n_sparse = L - store.dense_d
+    kv.reset_launches()  # the stacked path's run starts here
+    first, median_ms = run_policies(policies, make, hists, check, n_sparse)
+    launches = dict(kv.LAUNCHES)  # ... and ends here
+    for _, counter in policies.values():
+        if launches[counter] == 0:
+            raise AssertionError(f"{counter} never launched on the stacked "
+                                 "path")
+
+    # row 0 against the single-matrix retrieve over member 0, same batch
+    beams, scores = GenerativeRetriever(
+        params, cfg, DecodePolicy.static(store.member(0)), L, V,
+        beam_size=M).retrieve(hists[0])
+    if not (np.array_equal(beams[0], first["stacked"][0][0])
+            and np.array_equal(scores[0], first["stacked"][1][0])):
+        raise AssertionError("stacked row 0 differs from the single-matrix "
+                             "retrieve over store.member(0)")
+    log("  stacked row 0 bit-equal to DecodePolicy.static(store.member(0)) "
+        "over the same batch")
+
+    for name in ("stacked", "stacked_notopk"):
+        plain = DecodePolicy.stacked(store, impl="plain",
+                                     topk=policies[name][0].candidate_topk)
+        beams, scores = make(plain)(hists[0])
+        if not (np.array_equal(beams, first[name][0])
+                and np.array_equal(scores, first[name][1])):
+            raise AssertionError(f"{name}: plain constraint step disagrees")
+        log(f"  {name}: plain constraint step gives equal SIDs and scores")
+
+    # hot swap: re-age the catalog and rebuild fresh_22 into slot 0
+    t0 = time.time()
+    r = GenerativeRetriever(params, cfg, policies["stacked"][0], L, V,
+                            beam_size=M)
+    sids = idx["sids"]
+    age = rng.uniform(0.0, 90.0, sids.shape[0])
+    fresh = sids[SLOTS["fresh_22"](age, None)]
+    new = TransitionMatrix.from_flat_trie(
+        build_flat_trie(fresh, V, dense_d=store.dense_d), device="cuda")
+    cold = r.set_constraints(store.with_member(0, new))
+    del policies, new
+    if cold:
+        raise AssertionError("set_constraints reported a cold swap")
+    slot_sids[0] = np.asfortranarray(fresh)
+    before = dict(kv.LAUNCHES)
+    beams, scores = r.retrieve(hists[1], cids)
+    check("stacked after the swap", beams, scores)
+    rose = {k: kv.LAUNCHES[k] - before[k] for k in kv.LAUNCHES}
+    if rose != {k: (n_sparse if k == "vntk_stacked_topk" else 0) for k in rose}:
+        raise AssertionError(f"after the swap: launches {rose}")
+    log(f"  hot swap of a re-aged fresh_22 ({fresh.shape[0]} SIDs): "
+        f"set_constraints -> cold={cold}; row 0 compliant with the new set, "
+        f"{n_sparse} launches per retrieve ({time.time() - t0:.1f}s with the "
+        "rebuild)")
+    if args.profile:
+        profile_retrieve(lambda: r.retrieve(hists[1], cids),
+                         median_ms["stacked"])
+    return launches
+
+
+def profile_retrieve(retrieve, retrieve_ms):
     """Device time by kernel over one retrieve (torch.profiler); the idle
     share is taken against the unprofiled median ``retrieve_ms``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        r.retrieve(hist)
+        retrieve()
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -396,9 +756,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.configs import static_gr
-    from repro_torch.core.transition_matrix import TransitionMatrix
-    from repro_torch.core.trie import build_flat_trie, sorted_unique_sids
     from repro_torch.kernels import build
+    from repro_torch.models import transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -416,32 +775,39 @@ def main() -> int:
                 log(f"    {line.strip()}")
 
     rng = np.random.default_rng(args.seed)
-    n = args.constraints or static_gr.N_CONSTRAINTS
-    V, L = static_gr.SID_VOCAB, static_gr.SID_LENGTH
-    t0 = time.time()
-    sids = rng.integers(0, V, size=(n, L))
-    ft = build_flat_trie(sids, V, dense_d=static_gr.DENSE_D)
-    tm = TransitionMatrix.from_flat_trie(ft, device="cuda")
-    sorted_sids = np.asfortranarray(sorted_unique_sids(sids))
-    log(f"  trie of {n} random SIDs: {ft.n_states} states, {ft.n_edges} "
-        f"edges, {tm.nbytes() / 1e9:.3f} GB on the card, level bmax "
-        f"{list(map(int, ft.level_bmax))} ({time.time() - t0:.1f}s host build)")
+    log("phase 2: indexes")
+    idx = build_indexes(rng, args.constraints or static_gr.N_CONSTRAINTS)
 
-    log("phase 2: kernels vs plain versions")
-    checks = [KernelCheck(name) for name in KERNELS]
-    phase_kernels(rng, ft, tm, sids, static_gr.BEAM_SIZE, checks)
+    log("phase 3: kernels vs plain versions")
+    M = static_gr.BEAM_SIZE
+    checks = {name: KernelCheck(name) for name in KERNELS}
+    phase_kernels(rng, idx, M, [c for c in checks.values() if not c.stacked])
+    phase_stacked_kernels(rng, idx, M,
+                          [c for c in checks.values() if c.stacked],
+                          full_size=args.constraints is None)
     phase_golden()
+    phase_attention(rng)
 
-    log("phase 3: main path")
-    launches = phase_main(args, rng, tm, sorted_sids)
+    cfg = static_gr.CONFIG
+    t0 = time.time()
+    params = transformer.init_params(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.n_layers} layers x {cfg.d_model}, "
+        f"{cfg.param_count() / 1e9:.2f}B params in {cfg.dtype} "
+        f"({time.time() - t0:.1f}s init)")
+    log("phase 4: single-matrix path")
+    launches = phase_single(args, rng, params, cfg, idx)
+    log("phase 5: stacked path")
+    stacked = phase_stacked(args, rng, params, cfg, idx)
+    launches.update({k: v for k, v in stacked.items() if "stacked" in k})
 
-    log(f"phase 4: report ({time.time() - t_start:.1f}s total)")
+    log(f"phase 6: report ({time.time() - t_start:.1f}s total)")
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     print(smi.stdout.strip(), flush=True)
     rows = []
-    for chk in checks:
+    for chk in checks.values():
         ms, plain_ms, bound = np.mean(chk.times, axis=0)
         rows.append(dict(
             name=chk.name, route="cuda", source=SOURCE, replaces=chk.replaces,

@@ -1,6 +1,6 @@
-"""Move the reference package's parameters and tries into the port.
+"""Move the reference package's parameters, tries and stores into the port.
 
-Both helpers take host arrays, never JAX objects: the caller converts with
+The helpers take host arrays, never JAX objects: the caller converts with
 ``jax.tree.map(np.asarray, params)`` (or ``np.asarray`` per field), so the
 two packages compute with the same numbers.
 """
@@ -11,10 +11,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.constraints.store import _LEAF_FIELDS, ConstraintStore
 from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.models.transformer import check_supported, torch_dtype
 
-__all__ = ["params_from_jax", "transition_matrix_from_numpy"]
+__all__ = ["params_from_jax", "transition_matrix_from_numpy",
+           "store_from_numpy"]
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -58,3 +60,15 @@ def transition_matrix_from_numpy(tm, device=None) -> TransitionMatrix:
                 n_states=int(tm.n_states), n_edges=int(tm.n_edges),
                 n_constraints=int(tm.n_constraints))
     return TransitionMatrix.from_numpy(arrays, meta, device)
+
+
+def store_from_numpy(store, device=None) -> ConstraintStore:
+    """A port :class:`ConstraintStore` from any object with the reference
+    store's fields (arrays readable by ``np.asarray``)."""
+    arrays = {f: np.array(getattr(store, f)) for f in _LEAF_FIELDS}
+    meta = dict(vocab_size=int(store.vocab_size),
+                sid_length=int(store.sid_length), dense_d=int(store.dense_d),
+                level_bmax=tuple(int(b) for b in store.level_bmax),
+                n_states=int(store.n_states), n_edges=int(store.n_edges),
+                num_sets=int(store.num_sets))
+    return ConstraintStore.from_numpy(arrays, meta, device)

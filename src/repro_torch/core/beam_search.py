@@ -59,6 +59,7 @@ def beam_search(
     policy,
     carry_gather_fn: Optional[CarryGatherFn] = None,
     first_logits: Optional[torch.Tensor] = None,
+    constraint_ids=None,
     return_trace: bool = False,
 ):
     """Run ``length`` constrained decode steps; beams come out score-sorted.
@@ -69,14 +70,26 @@ def beam_search(
     step follows; after the last step no logits are read, so the returned
     carry is not reordered for it.
 
+    ``constraint_ids`` (B,) selects, per batch row, which member of a stacked
+    :class:`~repro_torch.constraints.ConstraintStore` masks that row: every
+    beam of a row shares its request's set, so the ids broadcast over the
+    beam axis once and beam reordering never moves them (DESIGN.md §4).
+
     Returns ``(state, carry)``, or ``(state, carry, trace)`` with
     ``return_trace`` — ``trace`` is a :class:`BeamState` whose fields carry a
     leading step axis (the post-advance beams at every level).
     """
     policy = as_policy(policy)
+    if policy.requires_constraint_ids and constraint_ids is None:
+        raise ValueError("ConstraintStore lookups need per-row constraint_ids")
+    if constraint_ids is not None and not policy.requires_constraint_ids:
+        raise ValueError(
+            "constraint_ids requires a stacked ConstraintStore policy")
     B, M = batch_size, beam_size
     device = policy.constraints.device
     state = _init_state(B, M, length, device)
+    cids_bm = (None if constraint_ids is None else torch.as_tensor(
+        constraint_ids, dtype=torch.int32, device=device)[:, None].expand(B, M))
     batch_ix = torch.arange(B, device=device)[:, None]
     trace = []
     for step in range(length):
@@ -92,14 +105,16 @@ def beam_search(
             # candidate-compressed advance (DESIGN.md §8): the lists carry
             # the dense rows' top-C in flat-index tie order, C >= min(M, V)
             C = policy.candidate_width(M, step)
-            c_lp, c_tok, c_next = policy.step_topk(logits, state.nodes, step, C)
+            c_lp, c_tok, c_next = policy.step_topk(
+                logits, state.nodes, step, C, constraint_ids=cids_bm)
             total = state.scores[:, :, None] + c_lp  # (B, M, C)
             top_scores, top_idx = top_m(total.reshape(B, M * C), M)
             beam_idx = top_idx // C
             token = c_tok.reshape(B, M * C).gather(1, top_idx)
             new_nodes = c_next.reshape(B, M * C).gather(1, top_idx)
         else:
-            lp, next_dense = policy.step(logits, state.nodes, step)
+            lp, next_dense = policy.step(logits, state.nodes, step,
+                                         constraint_ids=cids_bm)
             total = state.scores[:, :, None] + lp  # (B, M, V)
             top_scores, top_idx = top_m(total.reshape(B, M * V), M)
             beam_idx = top_idx // V

@@ -82,6 +82,11 @@ class TransitionMatrix:
 
     # ------------------------------------------------------------------
     @property
+    def is_stacked(self) -> bool:
+        """Single constraint set (a ConstraintStore reports ``True``)."""
+        return False
+
+    @property
     def device(self) -> torch.device:
         return self.row_pointers.device
 

@@ -73,8 +73,19 @@ def _validate_sids(sids: np.ndarray, vocab_size: int) -> np.ndarray:
 
 
 def sorted_unique_sids(sids: np.ndarray) -> np.ndarray:
-    """Lexicographically sorted, deduplicated SID rows."""
+    """Lexicographically sorted, deduplicated SID rows.
+
+    Rows that are already strictly ascending (a subset of a sorted catalog,
+    say) come back as they are, without the sort.
+    """
     n, L = sids.shape
+    if n > 1:
+        diff = sids[1:] != sids[:-1]
+        first = diff.argmax(axis=1)  # first differing column per row pair
+        rows = np.arange(n - 1)
+        if (diff[rows, first] & (sids[1:][rows, first]
+                                 > sids[:-1][rows, first])).all():
+            return sids
     order = np.lexsort(tuple(sids[:, c] for c in range(L - 1, -1, -1)))
     s = sids[order]
     if n > 1:

@@ -12,7 +12,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["NEG_INF", "LANE", "topk_lane", "candidate_width",
-           "vntk_reference_scatter", "vntk_topk_reference"]
+           "vntk_reference_scatter", "vntk_topk_reference",
+           "vntk_stacked_reference_scatter", "vntk_stacked_topk_reference"]
 
 NEG_INF = -1.0e10
 
@@ -32,20 +33,34 @@ def candidate_width(beams: int, vocab_size: int, lane: int = LANE) -> int:
     return max(1, min(-(-int(beams) // lane) * lane, int(vocab_size)))
 
 
-def _speculative_burst(nodes, row_pointers, edges, bmax: int):
+def _speculative_burst(nodes, row_pointers, edges, bmax: int,
+                       constraint_ids=None):
     """Phases 1-3: row lookup, ``bmax``-slot burst, ``iota < n_child``.
 
-    Returns ``(cols, nxt, valid)``, each ``(nb, bmax)``; ``cols`` is int64
-    (torch indexes with it), ``nxt`` int32 and 0 on invalid slots.  Slots
-    past the edge array read 0, like the reference's ``mode="fill"`` take.
+    With ``constraint_ids`` the tables carry a leading constraint axis
+    (``(K, S+1)`` / ``(K, E, 2)``) and row ``r`` reads member
+    ``constraint_ids[r]``, clamped into ``[0, K)`` as the reference's
+    gather clamps it.  Returns ``(cols, nxt, valid)``, each ``(nb, bmax)``;
+    ``cols`` is int64 (torch indexes with it), ``nxt`` int32 and 0 on
+    invalid slots.  Slots past the edge array read 0, like the reference's
+    ``mode="fill"`` take: only in-bounds slots are read.
     """
     n = nodes.reshape(-1).long()
-    starts = row_pointers[n].long()  # index first: the trie has ~1e8 rows
-    lens = row_pointers[n + 1].long() - starts
+    if constraint_ids is None:
+        starts = row_pointers[n].long()  # index first: the trie has ~1e8 rows
+        lens = row_pointers[n + 1].long() - starts
+    else:
+        cid = constraint_ids.expand(nodes.shape).reshape(-1).long().clamp(
+            0, row_pointers.shape[0] - 1)
+        starts = row_pointers[cid, n].long()
+        lens = row_pointers[cid, n + 1].long() - starts
+    E = edges.shape[-2]
     offsets = torch.arange(bmax, device=nodes.device)
     idx = starts[:, None] + offsets[None, :]
-    in_range = (idx >= 0) & (idx < edges.shape[0])
-    gathered = edges[idx.clamp(0, edges.shape[0] - 1)]
+    in_range = (idx >= 0) & (idx < E)
+    idx = idx.clamp(0, E - 1)
+    gathered = (edges[idx] if constraint_ids is None
+                else edges[cid[:, None], idx])
     gathered = torch.where(in_range[..., None], gathered, 0)
     valid = offsets[None, :] < lens[:, None]
     cols = gathered[..., 0].long()
@@ -53,15 +68,14 @@ def _speculative_burst(nodes, row_pointers, edges, bmax: int):
     return cols, nxt, valid
 
 
-def vntk_reference_scatter(log_probs, nodes, row_pointers, edges,
-                           bmax: int, vocab_size: int):
-    """Alg. 2, vocab-aligned: ``(masked_log_probs, next_dense)``, both
-    ``(..., V)``; ``NEG_INF`` / 0 off the trie."""
+def _project_scatter(log_probs, nodes, burst, vocab_size: int):
+    """Phase 4, vocab-aligned: scatter the valid slots into a ``(nb, V+1)``
+    buffer whose extra column absorbs the invalid ones."""
     V = vocab_size
     batch_shape = tuple(nodes.shape)
     lp = log_probs.reshape(-1, V)
     nb = lp.shape[0]
-    cols, nxt, valid = _speculative_burst(nodes, row_pointers, edges, bmax)
+    cols, nxt, valid = burst
     scatter_idx = torch.where(valid, cols, V)
     cand_lp = lp.gather(1, cols.clamp(0, V - 1))
     masked = torch.full((nb, V + 1), NEG_INF, dtype=lp.dtype, device=lp.device)
@@ -70,6 +84,27 @@ def vntk_reference_scatter(log_probs, nodes, row_pointers, edges,
     next_dense.scatter_(1, scatter_idx, nxt)
     return (masked[:, :V].reshape(batch_shape + (V,)),
             next_dense[:, :V].reshape(batch_shape + (V,)))
+
+
+def vntk_reference_scatter(log_probs, nodes, row_pointers, edges,
+                           bmax: int, vocab_size: int):
+    """Alg. 2, vocab-aligned: ``(masked_log_probs, next_dense)``, both
+    ``(..., V)``; ``NEG_INF`` / 0 off the trie."""
+    return _project_scatter(
+        log_probs, nodes,
+        _speculative_burst(nodes, row_pointers, edges, bmax), vocab_size)
+
+
+def vntk_stacked_reference_scatter(log_probs, nodes, constraint_ids,
+                                   row_pointers, edges, bmax: int,
+                                   vocab_size: int):
+    """Stacked-store Alg. 2: as :func:`vntk_reference_scatter`, row ``r``
+    masked by member ``constraint_ids[r]`` of the ``(K, S+1)`` /
+    ``(K, E, 2)`` tables."""
+    return _project_scatter(
+        log_probs, nodes,
+        _speculative_burst(nodes, row_pointers, edges, bmax, constraint_ids),
+        vocab_size)
 
 
 def _topk_from_candidates(lp_flat, cols, nxt, valid, width: int,
@@ -112,14 +147,30 @@ def _topk_from_candidates(lp_flat, cols, nxt, valid, width: int,
             nexts.gather(1, top_idx))
 
 
+def _topk(log_probs, nodes, burst, vocab_size: int, width: int):
+    V = vocab_size
+    batch_shape = tuple(nodes.shape)
+    sc, tok, nx = _topk_from_candidates(log_probs.reshape(-1, V), *burst,
+                                        width, V)
+    shp = batch_shape + (width,)
+    return sc.reshape(shp), tok.reshape(shp), nx.reshape(shp)
+
+
 def vntk_topk_reference(log_probs, nodes, row_pointers, edges, bmax: int,
                         vocab_size: int, width: int):
     """Candidate-compressed Alg. 2: ``(scores, tokens, next_states)``, each
     ``(..., width)`` — the per-beam dense-rank top-``width``."""
-    V = vocab_size
-    batch_shape = tuple(nodes.shape)
-    lp = log_probs.reshape(-1, V)
-    cols, nxt, valid = _speculative_burst(nodes, row_pointers, edges, bmax)
-    sc, tok, nx = _topk_from_candidates(lp, cols, nxt, valid, width, V)
-    shp = batch_shape + (width,)
-    return sc.reshape(shp), tok.reshape(shp), nx.reshape(shp)
+    return _topk(log_probs, nodes,
+                 _speculative_burst(nodes, row_pointers, edges, bmax),
+                 vocab_size, width)
+
+
+def vntk_stacked_topk_reference(log_probs, nodes, constraint_ids,
+                                row_pointers, edges, bmax: int,
+                                vocab_size: int, width: int):
+    """Stacked-store candidate-compressed step: one extra constraint-axis
+    gather through Phases 1-3, the same selection."""
+    return _topk(log_probs, nodes,
+                 _speculative_burst(nodes, row_pointers, edges, bmax,
+                                    constraint_ids),
+                 vocab_size, width)

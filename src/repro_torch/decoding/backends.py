@@ -1,10 +1,13 @@
-"""STATIC constraint backend over one :class:`TransitionMatrix`.
+"""STATIC constraint backends: one :class:`TransitionMatrix`, or a stacked
+multi-tenant :class:`~repro_torch.constraints.ConstraintStore`.
 
-Counterpart of ``repro.decoding.backends.StaticBackend`` (without the
-compressed-slab branches, which are not ported yet).  A backend masks one
-decode step and reports, vocab-aligned, where each token emission leads
-(DESIGN.md §3.1), or — on candidate-compressed levels — each beam's
-dense-rank top-C ``(scores, tokens, next_states)`` (DESIGN.md §8).
+Counterparts of ``repro.decoding.backends.StaticBackend`` and
+``StackedStaticBackend`` (without the compressed-slab branches and the
+level-free mask, which are not ported yet).  A backend masks one decode step
+and reports, vocab-aligned, where each token emission leads (DESIGN.md
+§3.1), or — on candidate-compressed levels — each beam's dense-rank top-C
+``(scores, tokens, next_states)`` (DESIGN.md §8).  The stacked backend keys
+every lookup on per-row ``constraint_ids`` (DESIGN.md §4).
 """
 from __future__ import annotations
 
@@ -13,12 +16,13 @@ from typing import Literal, Optional
 
 import torch
 
+from repro_torch.constraints.store import ConstraintStore
 from repro_torch.core import dense_mask
 from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.core.vntk import candidate_width
 from repro_torch.kernels import ops as kernel_ops
 
-__all__ = ["Levels", "StaticBackend"]
+__all__ = ["Levels", "StaticBackend", "StackedStaticBackend"]
 
 Levels = Literal["auto", "dense", "sparse"]
 
@@ -28,16 +32,24 @@ def _check_step(step: int, sid_length: int) -> None:
         raise ValueError(f"step {step} outside [0, {sid_length})")
 
 
-def _dense_at(step: int, dense_d: int, levels: Levels) -> bool:
+def _reject_constraint_ids(constraint_ids, who: str) -> None:
+    if constraint_ids is not None:
+        raise ValueError(
+            f"constraint_ids requires a stacked ConstraintStore backend, "
+            f"got {who}")
+
+
+def _dense_at(step: int, dense_d: int, levels: Levels,
+              who: str = "StaticBackend") -> bool:
     """Route ``step`` to the dense bit-packed tables or the sparse VNTK."""
     dense = step < dense_d
     if levels == "dense" and not dense:
         raise ValueError(
-            f"StaticBackend(levels='dense') consulted at sparse step {step} "
+            f"{who}(levels='dense') consulted at sparse step {step} "
             f"(dense_d={dense_d}); fix the policy plan")
     if levels == "sparse" and dense:
         raise ValueError(
-            f"StaticBackend(levels='sparse') consulted at dense step {step} "
+            f"{who}(levels='sparse') consulted at dense step {step} "
             f"(dense_d={dense_d}); fix the policy plan")
     return dense
 
@@ -60,6 +72,7 @@ class StaticBackend:
     levels: Levels = "auto"
 
     supports_fused = True
+    supports_stacked = False
     supports_topk = True
 
     def __post_init__(self):
@@ -83,8 +96,9 @@ class StaticBackend:
     def _bmax(self, step: int) -> int:
         return max(self.tm.bmax_for_step(step), 1)
 
-    def mask_step(self, log_probs, nodes, step):
+    def mask_step(self, log_probs, nodes, step, *, constraint_ids=None):
         """``(masked_lp, next_dense)``, both vocab-aligned ``(..., V)``."""
+        _reject_constraint_ids(constraint_ids, "a single TransitionMatrix")
         _check_step(step, self.tm.sid_length)
         if _dense_at(step, self.tm.dense_d, self.levels):
             if step == 0:
@@ -94,9 +108,10 @@ class StaticBackend:
             log_probs, nodes, self.tm.row_pointers, self.tm.edges,
             self._bmax(step), self.tm.vocab_size, impl=self.impl)
 
-    def fused_step(self, logits, nodes, step):
+    def fused_step(self, logits, nodes, step, *, constraint_ids=None):
         """Phases 1-2 in one pass on sparse steps; dense steps normalize
         then look up."""
+        _reject_constraint_ids(constraint_ids, "a single TransitionMatrix")
         _check_step(step, self.tm.sid_length)
         if _dense_at(step, self.tm.dense_d, self.levels):
             lp = torch.log_softmax(logits.float(), dim=-1)
@@ -105,9 +120,11 @@ class StaticBackend:
             logits, nodes, self.tm.row_pointers, self.tm.edges,
             self._bmax(step), self.tm.vocab_size, impl=self.impl)
 
-    def topk_step(self, values, nodes, step, width, *, normalized=True):
+    def topk_step(self, values, nodes, step, width, *, constraint_ids=None,
+                  normalized=True):
         """Per-beam dense-rank top-``width`` ``(scores, tokens, next)``;
         ``values`` are log-probs, or raw logits when not ``normalized``."""
+        _reject_constraint_ids(constraint_ids, "a single TransitionMatrix")
         _check_step(step, self.tm.sid_length)
         if not self.topk_at(step):
             raise ValueError(
@@ -117,3 +134,94 @@ class StaticBackend:
             values, nodes, self.tm.row_pointers, self.tm.edges,
             self._bmax(step), self.tm.vocab_size, width,
             fused_logsoftmax=not normalized, impl=self.impl)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedStaticBackend:
+    """STATIC over a stacked multi-tenant :class:`ConstraintStore`.
+
+    Every lookup reads one extra leading constraint axis through the per-row
+    ``constraint_ids``, which each step requires.  ``impl``, ``fused`` and
+    ``levels`` are as for :class:`StaticBackend`.
+    """
+
+    store: ConstraintStore
+    impl: Optional[str] = None
+    fused: bool = False
+    levels: Levels = "auto"
+
+    supports_fused = True
+    supports_stacked = True
+    supports_topk = True
+
+    def __post_init__(self):
+        if self.impl not in kernel_ops.IMPLS:
+            raise ValueError(f"impl must be one of {kernel_ops.IMPLS}, got "
+                             f"{self.impl!r}")
+
+    @property
+    def sid_length(self) -> int:
+        return self.store.sid_length
+
+    @property
+    def num_sets(self) -> int:
+        return self.store.num_sets
+
+    def topk_at(self, step: int) -> bool:
+        if self.levels == "dense":
+            return False
+        return step >= min(self.store.dense_d, self.store.sid_length)
+
+    def candidate_width(self, beams: int) -> int:
+        return candidate_width(beams, self.store.vocab_size)
+
+    def _bmax(self, step: int) -> int:
+        return max(self.store.bmax_for_step(step), 1)
+
+    def _dense(self, step, constraint_ids) -> bool:
+        """Check ids and step; True when ``step`` is a dense level."""
+        self._require(step, constraint_ids)
+        return _dense_at(step, self.store.dense_d, self.levels,
+                         "StackedStaticBackend")
+
+    def _require(self, step, constraint_ids) -> None:
+        if constraint_ids is None:
+            raise ValueError(
+                "ConstraintStore lookups need per-row constraint_ids")
+        _check_step(step, self.store.sid_length)
+
+    def mask_step(self, log_probs, nodes, step, *, constraint_ids=None):
+        if self._dense(step, constraint_ids):
+            if step == 0:
+                return dense_mask.dense_lookup_l0(
+                    log_probs, self.store, constraint_ids=constraint_ids)
+            return dense_mask.dense_lookup_l1(
+                log_probs, nodes, self.store, constraint_ids=constraint_ids)
+        return kernel_ops.vntk(
+            log_probs, nodes, self.store.row_pointers, self.store.edges,
+            self._bmax(step), self.store.vocab_size, impl=self.impl,
+            constraint_ids=constraint_ids)
+
+    def fused_step(self, logits, nodes, step, *, constraint_ids=None):
+        if self._dense(step, constraint_ids):
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            return self.mask_step(lp, nodes, step,
+                                  constraint_ids=constraint_ids)
+        return kernel_ops.vntk_fused_logsoftmax(
+            logits, nodes, self.store.row_pointers, self.store.edges,
+            self._bmax(step), self.store.vocab_size, impl=self.impl,
+            constraint_ids=constraint_ids)
+
+    def topk_step(self, values, nodes, step, width, *, constraint_ids=None,
+                  normalized=True):
+        """Candidate-compressed Phases 1-2 through the stacked store."""
+        self._require(step, constraint_ids)
+        if not self.topk_at(step):
+            raise ValueError(
+                f"StackedStaticBackend(levels={self.levels!r}) has no "
+                f"candidate row at dense step {step}; fix the policy plan")
+        return kernel_ops.vntk_topk(
+            values, nodes, self.store.row_pointers, self.store.edges,
+            self._bmax(step), self.store.vocab_size, width,
+            fused_logsoftmax=not normalized, impl=self.impl,
+            constraint_ids=constraint_ids)

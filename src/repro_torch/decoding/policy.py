@@ -1,8 +1,10 @@
 """DecodePolicy — a per-level constraint plan for beam decoding.
 
-Counterpart of ``repro.decoding.policy.DecodePolicy`` for the STATIC
-single-matrix plan: it binds which backend masks each decode level and
-normalizes Phase 1 (log-softmax) unless the backend fuses it.
+Counterpart of ``repro.decoding.policy.DecodePolicy`` for the STATIC plans
+over one matrix or a stacked multi-tenant store: it binds which backend
+masks each decode level and normalizes Phase 1 (log-softmax) unless the
+backend fuses it.  Per-row ``constraint_ids`` reach only the backends that
+read a stacked store.
 """
 from __future__ import annotations
 
@@ -11,8 +13,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.constraints.store import ConstraintStore
 from repro_torch.core.transition_matrix import TransitionMatrix
-from repro_torch.decoding.backends import StaticBackend
+from repro_torch.decoding.backends import StackedStaticBackend, StaticBackend
 
 __all__ = ["DecodePolicy", "as_policy"]
 
@@ -38,12 +41,33 @@ class DecodePolicy:
         if bad:
             raise ValueError(f"plan references unknown backends: {bad}")
 
-    def backend_for(self, step: int) -> StaticBackend:
+    def backend_for(self, step: int):
         return self.backends[self.plan[min(step, len(self.plan) - 1)]]
 
     @property
-    def constraints(self) -> TransitionMatrix:
-        return self.backends[0].tm
+    def requires_constraint_ids(self) -> bool:
+        return any(b.supports_stacked for b in self.backends)
+
+    @property
+    def num_sets(self) -> Optional[int]:
+        """Member count of the stacked store, or ``None`` if single-tenant."""
+        for b in self.backends:
+            if b.supports_stacked:
+                return b.num_sets
+        return None
+
+    @property
+    def constraints(self):
+        """The underlying TransitionMatrix or ConstraintStore."""
+        b = self.backends[0]
+        return b.store if isinstance(b, StackedStaticBackend) else b.tm
+
+    def _ids_for(self, b, constraint_ids):
+        """The ids a backend takes: only stacked backends read them."""
+        if constraint_ids is not None and not self.requires_constraint_ids:
+            raise ValueError(
+                "constraint_ids requires a stacked ConstraintStore policy")
+        return constraint_ids if b.supports_stacked else None
 
     # -- candidate-compressed decoding (DESIGN.md §8) ----------------------
     def supports_topk_at(self, step: int) -> bool:
@@ -61,7 +85,7 @@ class DecodePolicy:
         return dataclasses.replace(self, candidate_topk=bool(enabled))
 
     def step_topk(self, logits, nodes, step: int, width: int, *,
-                  normalized: bool = False):
+                  constraint_ids=None, normalized: bool = False):
         """Candidate-compressed Phases 1-2: per-beam dense-rank top-``width``
         ``(scores, tokens, next_states)``, each ``(..., width)`` — the
         top-``width`` of the row :meth:`step` would produce, in its flat-index
@@ -72,29 +96,36 @@ class DecodePolicy:
                 f"(plan {self.describe()}); use step() or check "
                 "supports_topk_at first")
         b = self.backend_for(step)
+        cids = self._ids_for(b, constraint_ids)
         if not normalized and b.fused:
-            return b.topk_step(logits, nodes, step, width, normalized=False)
+            return b.topk_step(logits, nodes, step, width,
+                               constraint_ids=cids, normalized=False)
         lp = logits if normalized else torch.log_softmax(logits.float(), dim=-1)
-        return b.topk_step(lp, nodes, step, width, normalized=True)
+        return b.topk_step(lp, nodes, step, width, constraint_ids=cids,
+                           normalized=True)
 
-    def step(self, logits, nodes, step: int, *, normalized: bool = False):
+    def step(self, logits, nodes, step: int, *, constraint_ids=None,
+             normalized: bool = False):
         """Phases 1-2 of Alg. 1: ``(masked_log_probs, next_dense)``, both
         vocab-aligned."""
         b = self.backend_for(step)
+        cids = self._ids_for(b, constraint_ids)
         if not normalized and b.fused:
-            return b.fused_step(logits, nodes, step)
+            return b.fused_step(logits, nodes, step, constraint_ids=cids)
         lp = logits if normalized else torch.log_softmax(logits.float(), dim=-1)
-        return b.mask_step(lp, nodes, step)
+        return b.mask_step(lp, nodes, step, constraint_ids=cids)
 
     def describe(self) -> str:
         """Human-readable per-level plan, e.g. ``L0-1:dense-bitpack
         L2-7:vntk[auto+topk]`` (``auto``: kernel on the card, plain on
-        the CPU)."""
+        the CPU); stacked backends read ``stacked(K=...):...``."""
         def label(b):
-            if b.levels == "dense":
-                return "dense-bitpack"
-            return (f"vntk[{b.impl or 'auto'}{'+fused' if b.fused else ''}"
-                    f"{'+topk' if self.candidate_topk else ''}]")
+            kind = "dense-bitpack" if b.levels == "dense" else (
+                f"vntk[{b.impl or 'auto'}{'+fused' if b.fused else ''}"
+                f"{'+topk' if self.candidate_topk else ''}]")
+            if isinstance(b, StackedStaticBackend):
+                return f"stacked(K={b.num_sets}):{kind}"
+            return kind
 
         parts, start = [], 0
         for s in range(1, len(self.plan) + 1):
@@ -104,34 +135,77 @@ class DecodePolicy:
                 start = s
         return " ".join(parts)
 
+    # -- hot swap ------------------------------------------------------------
+    def with_constraints(self, obj) -> "DecodePolicy":
+        """A new policy with ``obj`` (matrix or store) in place of the old.
+
+        Only the backends whose kind matches ``obj`` are swapped; every other
+        field is kept.
+        """
+        stacked = bool(getattr(obj, "is_stacked", False))
+        swapped, hit = [], False
+        for b in self.backends:
+            if isinstance(b, StackedStaticBackend) and stacked:
+                swapped.append(dataclasses.replace(b, store=obj))
+                hit = True
+            elif (isinstance(b, StaticBackend) and not stacked
+                    and isinstance(obj, TransitionMatrix)):
+                swapped.append(dataclasses.replace(b, tm=obj))
+                hit = True
+            else:
+                swapped.append(b)
+        if not hit:
+            raise TypeError(
+                f"[{self.describe()}]: no swappable backend accepts "
+                f"{type(obj).__name__} (StackedStaticBackend hot-swaps a "
+                "ConstraintStore, StaticBackend a TransitionMatrix)")
+        return dataclasses.replace(self, backends=tuple(swapped))
+
     # -- factories ---------------------------------------------------------
     @classmethod
-    def static(cls, tm: TransitionMatrix, *, impl: Optional[str] = None,
-               fused: bool = False, topk: bool = True) -> "DecodePolicy":
+    def static(cls, tm, *, impl: Optional[str] = None, fused: bool = False,
+               topk: bool = True) -> "DecodePolicy":
         """STATIC plan: dense bit-packed lookups for levels < ``dense_d``,
         the VNTK (optionally ``fused``) for the deeper levels; ``topk`` runs
-        the sparse levels candidate-compressed (DESIGN.md §8)."""
-        L, d = tm.sid_length, min(tm.dense_d, tm.sid_length)
+        the sparse levels candidate-compressed (DESIGN.md §8).  A stacked
+        store gets :meth:`stacked`."""
+        if getattr(tm, "is_stacked", False):
+            return cls.stacked(tm, impl=impl, fused=fused, topk=topk)
+        return cls._plan(StaticBackend, tm, impl, fused, topk)
+
+    @classmethod
+    def stacked(cls, store: ConstraintStore, *, impl: Optional[str] = None,
+                fused: bool = False, topk: bool = True) -> "DecodePolicy":
+        """Multi-tenant STATIC plan over a stacked ConstraintStore."""
+        return cls._plan(StackedStaticBackend, store, impl, fused, topk)
+
+    @classmethod
+    def _plan(cls, backend, tables, impl, fused, topk) -> "DecodePolicy":
+        L, d = tables.sid_length, min(tables.dense_d, tables.sid_length)
         if d == 0:
-            return cls(backends=(StaticBackend(tm, impl=impl, fused=fused,
-                                               levels="sparse"),),
+            return cls(backends=(backend(tables, impl=impl, fused=fused,
+                                         levels="sparse"),),
                        plan=(0,) * L, candidate_topk=topk)
         if d >= L:
-            return cls(backends=(StaticBackend(tm, levels="dense"),),
+            return cls(backends=(backend(tables, levels="dense"),),
                        plan=(0,) * L, candidate_topk=topk)
         return cls(
-            backends=(StaticBackend(tm, levels="dense"),
-                      StaticBackend(tm, impl=impl, fused=fused,
-                                    levels="sparse")),
+            backends=(backend(tables, levels="dense"),
+                      backend(tables, impl=impl, fused=fused,
+                              levels="sparse")),
             plan=tuple(0 if s < d else 1 for s in range(L)),
             candidate_topk=topk)
 
 
 def as_policy(obj) -> DecodePolicy:
-    """A :class:`DecodePolicy` as it is, or the STATIC plan of a matrix."""
+    """A :class:`DecodePolicy` as it is, the stacked plan of a store, or the
+    STATIC plan of a matrix."""
     if isinstance(obj, DecodePolicy):
         return obj
+    if isinstance(obj, ConstraintStore):
+        return DecodePolicy.stacked(obj)
     if isinstance(obj, TransitionMatrix):
         return DecodePolicy.static(obj)
     raise TypeError(f"cannot build a DecodePolicy from {type(obj).__name__}; "
-                    "pass a DecodePolicy or a TransitionMatrix")
+                    "pass a DecodePolicy, TransitionMatrix or "
+                    "ConstraintStore")

@@ -1,18 +1,37 @@
 // Vectorized Node Transition Kernel (paper Alg. 2) for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/vntk.py:
-//   * vntk_topk_kernel<FUSED>  <- vntk_topk_pallas (fused_logsoftmax=False/True)
-//                                 (_vntk_topk_call, _vntk_topk_body,
-//                                 _dma_front, _project_and_select)
-//   * vntk_mask_kernel<FUSED>  <- vntk_pallas / vntk_fused_logsoftmax_pallas
-//                                 (_vntk_call, _vntk_body, _project_and_write)
+//   * vntk_topk_kernel<FUSED, false> <- vntk_topk_pallas (fused_logsoftmax=
+//                                 False/True) (_vntk_topk_call,
+//                                 _vntk_topk_body, _dma_front,
+//                                 _project_and_select)
+//   * vntk_mask_kernel<FUSED, false> <- vntk_pallas /
+//                                 vntk_fused_logsoftmax_pallas (_vntk_call,
+//                                 _vntk_body, _project_and_write)
+//   * vntk_topk_kernel<FUSED, true>  <- vntk_stacked_topk_pallas (both modes;
+//                                 _vntk_topk_call's stacked branch,
+//                                 _vntk_stacked_topk_body)
+//   * vntk_mask_kernel<FUSED, true>  <- vntk_stacked_pallas /
+//                                 vntk_stacked_fused_logsoftmax_pallas
+//                                 (_vntk_stacked_call, _vntk_stacked_body)
 //
-// What bounds it on this card: bytes.  Per beam row the step reads one CSR
-// row pointer pair, at most n_child (token, next) pairs and, when FUSED, the
-// whole (V,) f32 logit row; it writes (C,) scores/tokens/next states (topk)
-// or the (V,) masked row and (V,) next-state map (mask).  At the main
-// path's shapes (nb = 140, V = 2048, C = 72) that is ~1.1 MB of logits read
-// when fused and 140 * 72 * 12 B = 121 KB written by topk: well under a
+// STACKED reads a multi-tenant ConstraintStore: row_pointers (K, S+1) and
+// edges (K, E, 2), row r through member k = cids[r].  That is one extra
+// gather level: the member's base pointers are row_pointers + k * rp_stride
+// and edges + k * edge_stride, computed in int64 (a store of several
+// 20M-SID members lies past 2^31 int32 elements, where an int product
+// wraps silently).  k is clamped into [0, K), as the reference's gather
+// clamps it, so no id reads outside the store; the host rejects
+// out-of-range ids before a retrieve.  Within a member every index is the
+// single-matrix kernel's.
+//
+// What bounds it on this card: bytes.  Per beam row the step reads its
+// constraint id (STACKED), one CSR row pointer pair, at most n_child
+// (token, next) pairs and, when FUSED, the whole (V,) f32 logit row; it
+// writes (C,) scores/tokens/next states (topk) or the (V,) masked row and
+// (V,) next-state map (mask).  At the main paths' shapes (nb = 140 single
+// or 350 stacked, V = 2048, C = 72) that is at most ~2.9 MB of logits read
+// when fused and 350 * 72 * 12 B = 302 KB written by topk: about a
 // microsecond at 3.35 TB/s, so launch latency dominates.
 //
 // What the design does about it: one thread block per beam row, no
@@ -89,15 +108,34 @@ struct RowLogProb {
   }
 };
 
+// The CSR tables of row `row`'s constraint set: the store's member
+// clamp(cids[row], 0, K-1) when STACKED, else the single matrix.
+template <bool STACKED>
+struct Member {
+  const int* rp;
+  const int2* edges;
+
+  __device__ __forceinline__ Member(const int* row_pointers, const int2* e,
+                                    const int* cids, int K, int64_t rp_stride,
+                                    int64_t edge_stride, int row)
+      : rp(row_pointers), edges(e) {
+    if (!STACKED) return;
+    const int64_t k = min(max(cids[row], 0), K - 1);
+    rp += k * rp_stride;
+    edges += k * edge_stride;
+  }
+};
+
 // One block per beam row: per-beam dense-rank top-`width` of the CSR row of
 // nodes[row] — valid children by (lp desc, token asc), then the first
 // missing tokens at NEG_INF; slots that do not exist sink to -FLT_MAX.
-template <bool FUSED>
+template <bool FUSED, bool STACKED>
 __global__ void __launch_bounds__(kThreads) vntk_topk_kernel(
     const float* __restrict__ values, int64_t ld, const int* __restrict__ nodes,
-    const int* __restrict__ row_pointers, const int2* __restrict__ edges, int V,
-    int bmax, int width, float* __restrict__ out_sc, int* __restrict__ out_tok,
-    int* __restrict__ out_next) {
+    const int* __restrict__ cids, int K, const int* __restrict__ row_pointers,
+    int64_t rp_stride, const int2* __restrict__ edges, int64_t edge_stride,
+    int V, int bmax, int width, float* __restrict__ out_sc,
+    int* __restrict__ out_tok, int* __restrict__ out_next) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[kWarps];
   const int J = bmax + width;
@@ -107,15 +145,17 @@ __global__ void __launch_bounds__(kThreads) vntk_topk_kernel(
 
   const int row = blockIdx.x;
   const RowLogProb<FUSED> lp(values + row * ld, V, red);
+  const Member<STACKED> mem(row_pointers, edges, cids, K, rp_stride,
+                            edge_stride, row);
   const int node = nodes[row];
-  const int start = row_pointers[node];
-  const int n_child = row_pointers[node + 1] - start;
+  const int start = mem.rp[node];
+  const int n_child = mem.rp[node + 1] - start;
   const int n_real = max(0, min(n_child, bmax));
 
   // candidate slots of the CSR row (token-ascending)
   for (int j = threadIdx.x; j < bmax; j += kThreads) {
     if (j < n_real) {
-      const int2 e = edges[start + j];
+      const int2 e = mem.edges[start + j];
       keys[j] = lp(min(max(e.x, 0), V - 1));
       toks[j] = e.x;
       nexts[j] = e.y;
@@ -161,11 +201,12 @@ __global__ void __launch_bounds__(kThreads) vntk_topk_kernel(
 
 // One block per beam row: the vocab-aligned masked log-prob row (NEG_INF off
 // the trie) and next-state map (0 when invalid), by fill then scatter.
-template <bool FUSED>
+template <bool FUSED, bool STACKED>
 __global__ void __launch_bounds__(kThreads) vntk_mask_kernel(
     const float* __restrict__ values, int64_t ld, const int* __restrict__ nodes,
-    const int* __restrict__ row_pointers, const int2* __restrict__ edges, int V,
-    int bmax, float* __restrict__ out_lp, int* __restrict__ out_next) {
+    const int* __restrict__ cids, int K, const int* __restrict__ row_pointers,
+    int64_t rp_stride, const int2* __restrict__ edges, int64_t edge_stride,
+    int V, int bmax, float* __restrict__ out_lp, int* __restrict__ out_next) {
   __shared__ float red[kWarps];
   const int row = blockIdx.x;
   const RowLogProb<FUSED> lp(values + row * ld, V, red);
@@ -175,12 +216,14 @@ __global__ void __launch_bounds__(kThreads) vntk_mask_kernel(
     o[v] = kNegInf;
     on[v] = 0;
   }
+  const Member<STACKED> mem(row_pointers, edges, cids, K, rp_stride,
+                            edge_stride, row);
   const int node = nodes[row];
-  const int start = row_pointers[node];
-  const int n_real = max(0, min(row_pointers[node + 1] - start, bmax));
+  const int start = mem.rp[node];
+  const int n_real = max(0, min(mem.rp[node + 1] - start, bmax));
   __syncthreads();  // the fill lands before the scatter overwrites it
   for (int j = threadIdx.x; j < n_real; j += kThreads) {
-    const int2 e = edges[start + j];
+    const int2 e = mem.edges[start + j];
     if (e.x >= 0 && e.x < V) {  // tokens within a row are distinct
       o[e.x] = lp(e.x);
       on[e.x] = e.y;
@@ -195,49 +238,106 @@ cudaError_t prepare_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+size_t topk_smem_bytes(int bmax, int width) {
+  return static_cast<size_t>(bmax + width) * (sizeof(float) + 2 * sizeof(int));
+}
+
+template <bool FUSED, bool STACKED>
+int launch_topk(const float* values, int64_t ld, const int* nodes,
+                const int* cids, int K, const int* row_pointers,
+                int64_t rp_stride, const int* edges, int64_t edge_stride,
+                int nb, int V, int bmax, int width, float* out_sc,
+                int* out_tok, int* out_next, cudaStream_t stream) {
+  const size_t smem = topk_smem_bytes(bmax, width);
+  const cudaError_t err = prepare_smem(vntk_topk_kernel<FUSED, STACKED>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  vntk_topk_kernel<FUSED, STACKED><<<nb, kThreads, smem, stream>>>(
+      values, ld, nodes, cids, K, row_pointers, rp_stride,
+      reinterpret_cast<const int2*>(edges), edge_stride, V, bmax, width,
+      out_sc, out_tok, out_next);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool FUSED, bool STACKED>
+int launch_mask(const float* values, int64_t ld, const int* nodes,
+                const int* cids, int K, const int* row_pointers,
+                int64_t rp_stride, const int* edges, int64_t edge_stride,
+                int nb, int V, int bmax, float* out_lp, int* out_next,
+                cudaStream_t stream) {
+  vntk_mask_kernel<FUSED, STACKED><<<nb, kThreads, 0, stream>>>(
+      values, ld, nodes, cids, K, row_pointers, rp_stride,
+      reinterpret_cast<const int2*>(edges), edge_stride, V, bmax, out_lp,
+      out_next);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory the topk kernel needs for bmax + width candidate keys.
+// Shared memory the topk kernels need for bmax + width candidate keys.
 size_t vntk_topk_smem_bytes(int bmax, int width) {
-  return static_cast<size_t>(bmax + width) * (sizeof(float) + 2 * sizeof(int));
+  return topk_smem_bytes(bmax, width);
 }
 
 int vntk_topk_launch(const float* values, int64_t ld, const int* nodes,
                      const int* row_pointers, const int* edges, int nb, int V,
                      int bmax, int width, int fused, float* out_sc, int* out_tok,
                      int* out_next, cudaStream_t stream) {
-  const size_t smem = vntk_topk_smem_bytes(bmax, width);
-  const int2* e = reinterpret_cast<const int2*>(edges);
-  cudaError_t err;
-  if (fused) {
-    err = prepare_smem(vntk_topk_kernel<true>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    vntk_topk_kernel<true><<<nb, kThreads, smem, stream>>>(
-        values, ld, nodes, row_pointers, e, V, bmax, width, out_sc, out_tok, out_next);
-  } else {
-    err = prepare_smem(vntk_topk_kernel<false>, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    vntk_topk_kernel<false><<<nb, kThreads, smem, stream>>>(
-        values, ld, nodes, row_pointers, e, V, bmax, width, out_sc, out_tok, out_next);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return fused ? launch_topk<true, false>(values, ld, nodes, nullptr, 1,
+                                          row_pointers, 0, edges, 0, nb, V,
+                                          bmax, width, out_sc, out_tok,
+                                          out_next, stream)
+               : launch_topk<false, false>(values, ld, nodes, nullptr, 1,
+                                           row_pointers, 0, edges, 0, nb, V,
+                                           bmax, width, out_sc, out_tok,
+                                           out_next, stream);
 }
 
 int vntk_mask_launch(const float* values, int64_t ld, const int* nodes,
                      const int* row_pointers, const int* edges, int nb, int V,
                      int bmax, int fused, float* out_lp, int* out_next,
                      cudaStream_t stream) {
-  const int2* e = reinterpret_cast<const int2*>(edges);
-  if (fused) {
-    vntk_mask_kernel<true><<<nb, kThreads, 0, stream>>>(
-        values, ld, nodes, row_pointers, e, V, bmax, out_lp, out_next);
-  } else {
-    vntk_mask_kernel<false><<<nb, kThreads, 0, stream>>>(
-        values, ld, nodes, row_pointers, e, V, bmax, out_lp, out_next);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return fused ? launch_mask<true, false>(values, ld, nodes, nullptr, 1,
+                                          row_pointers, 0, edges, 0, nb, V,
+                                          bmax, out_lp, out_next, stream)
+               : launch_mask<false, false>(values, ld, nodes, nullptr, 1,
+                                           row_pointers, 0, edges, 0, nb, V,
+                                           bmax, out_lp, out_next, stream);
+}
+
+// Stacked store: rp_stride = S + 1 row pointers and edge_stride = E edge
+// pairs per member, K members.
+int vntk_stacked_topk_launch(const float* values, int64_t ld, const int* nodes,
+                             const int* cids, int K, const int* row_pointers,
+                             int64_t rp_stride, const int* edges,
+                             int64_t edge_stride, int nb, int V, int bmax,
+                             int width, int fused, float* out_sc, int* out_tok,
+                             int* out_next, cudaStream_t stream) {
+  return fused ? launch_topk<true, true>(values, ld, nodes, cids, K,
+                                         row_pointers, rp_stride, edges,
+                                         edge_stride, nb, V, bmax, width,
+                                         out_sc, out_tok, out_next, stream)
+               : launch_topk<false, true>(values, ld, nodes, cids, K,
+                                          row_pointers, rp_stride, edges,
+                                          edge_stride, nb, V, bmax, width,
+                                          out_sc, out_tok, out_next, stream);
+}
+
+int vntk_stacked_mask_launch(const float* values, int64_t ld, const int* nodes,
+                             const int* cids, int K, const int* row_pointers,
+                             int64_t rp_stride, const int* edges,
+                             int64_t edge_stride, int nb, int V, int bmax,
+                             int fused, float* out_lp, int* out_next,
+                             cudaStream_t stream) {
+  return fused ? launch_mask<true, true>(values, ld, nodes, cids, K,
+                                         row_pointers, rp_stride, edges,
+                                         edge_stride, nb, V, bmax, out_lp,
+                                         out_next, stream)
+               : launch_mask<false, true>(values, ld, nodes, cids, K,
+                                          row_pointers, rp_stride, edges,
+                                          edge_stride, nb, V, bmax, out_lp,
+                                          out_next, stream);
 }
 
 }  // extern "C"

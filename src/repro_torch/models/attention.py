@@ -3,9 +3,13 @@
 Counterparts of ``repro.models.attention``, as plain torch ops with the
 reference's ``(B, S, KVH, Dh)`` layout at the public functions.  GQA is a
 ``(KVH, G)`` factoring of the query heads, so the cache is never repeated
-``G`` times.  Scores and softmax run in float32; the products themselves
-run in the inputs' dtype (cuBLAS accumulates bf16 in float32 and rounds the
-product to bf16, where the TPU reference asks XLA for float32 products).
+``G`` times.  As in the reference, both products are float32 results of the
+operands' values (``preferred_element_type=float32`` there): the score
+product is float32 before the scale and the softmax, the probabilities are
+cast to the value dtype, the PV product is float32 again, and the output is
+cast back to the query dtype at the end.  On the card a bf16 product asks
+cuBLAS for a float32 result (``torch.bmm(..., out_dtype=torch.float32)``);
+elsewhere the operands are upcast, which keeps their values exactly.
 """
 from __future__ import annotations
 
@@ -16,40 +20,80 @@ __all__ = ["chunked_causal_attention", "decode_attention"]
 NEG = -1.0e30
 
 
+def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` as a float32 result of the operands' values."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _chunk(size: int, total: int) -> int:
+    """The reference's chunk: ``min(size, total)``, halved until it divides."""
+    size = min(size, total)
+    while total % size:
+        size //= 2
+    return size
+
+
 def chunked_causal_attention(
     q: torch.Tensor,  # (B, Sq, H, Dh)
     k: torch.Tensor,  # (B, Skv, KVH, Dh)
     v: torch.Tensor,  # (B, Skv, KVH, Dv)
     *,
     chunk_q: int = 512,
+    chunk_kv: int = 1024,
     window: int | None = None,
     q_offset: int = 0,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Causal attention in query chunks of ``chunk_q`` rows.
+    """Causal attention in query chunks, streaming key chunks through the
+    reference's online log-sum-exp (unnormalized probabilities cast to the
+    value dtype, divided by their float32 sum at the end).
 
-    Each chunk takes an exact softmax over all keys, so memory is
-    ``O(B * H * chunk_q * Skv)``; the reference's online-softmax streaming
-    over key chunks gives the same values up to rounding.
+    Key chunks wholly after a query chunk are skipped: under the causal mask
+    they would add exactly nothing.
     """
     B, Sq, H, Dh = q.shape
     Skv, KVH, Dv = v.shape[1], v.shape[2], v.shape[3]
     G = H // KVH
     scale = scale if scale is not None else Dh ** -0.5
-    qg = q.reshape(B, Sq, KVH, G, Dh)
-    k_pos = torch.arange(Skv, device=q.device)
+    cq, ck = _chunk(chunk_q, Sq), _chunk(chunk_kv, Skv)
+    # (B*KVH, ...) operands of the batched products
+    qg = q.reshape(B, Sq, KVH, G, Dh).permute(0, 2, 3, 1, 4)  # (B, KVH, G, Sq, Dh)
+    kt = k.permute(0, 2, 3, 1).reshape(B * KVH, Dh, Skv)
+    vv = v.permute(0, 2, 1, 3).reshape(B * KVH, Skv, Dv)
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
-    for q0 in range(0, Sq, chunk_q):
-        q1 = min(q0 + chunk_q, Sq)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg[:, q0:q1], k).float() * scale
-        q_pos = q_offset + torch.arange(q0, q1, device=q.device)
-        mask = k_pos[None, :] <= q_pos[:, None]
-        if window is not None:
-            mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
-        s = torch.where(mask, s, NEG)
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype), v)
-        out[:, q0:q1] = o.reshape(B, q1 - q0, H, Dv)
+    for q0 in range(0, Sq, cq):
+        q3 = qg[:, :, :, q0:q0 + cq].reshape(B * KVH, G * cq, Dh)
+        q_pos = q_offset + torch.arange(q0, q0 + cq, device=q.device)
+        m = torch.full((B * KVH, G, cq), NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B * KVH, G * cq, Dv), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, Skv, ck):
+            if k0 > q_offset + q0 + cq - 1:
+                break
+            s = _product_f32(q3, kt[:, :, k0:k0 + ck]).view(
+                B * KVH, G, cq, ck) * scale
+            k_pos = torch.arange(k0, k0 + ck, device=q.device)
+            mask = k_pos[None, :] <= q_pos[:, None]
+            if window is not None:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = _product_f32(p.to(v.dtype).view(B * KVH, G * cq, ck),
+                              vv[:, k0:k0 + ck])
+            acc = acc * corr.view(B * KVH, G * cq, 1) + pv
+            m = m_new
+        o = acc / l.clamp_min(1e-30).view(B * KVH, G * cq, 1)
+        out[:, q0:q0 + cq] = o.view(B, KVH, G, cq, Dv).permute(
+            0, 3, 1, 2, 4).reshape(B, cq, H, Dv)
     return out
 
 
@@ -66,16 +110,19 @@ def decode_attention(
     """Single-token GQA attention over a KV cache, slot-validity masked."""
     B, S, KVH, Dh = k_cache.shape
     H = q.shape[2]
+    G = H // KVH
     Dv = v_cache.shape[-1]
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    qg = q.reshape(B, KVH, H // KVH, Dh)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * scale
+    q3 = q.reshape(B * KVH, G, Dh)
+    kt = k_cache.permute(0, 2, 3, 1).reshape(B * KVH, Dh, S)
+    s = _product_f32(q3, kt).view(B, KVH, G, S) * scale
     pos = slot_positions.expand(B, S)
     cur = torch.as_tensor(cur_pos, device=q.device).expand(B)[:, None]
     mask = (pos >= 0) & (pos <= cur)
     if window is not None:
         mask = mask & (pos > cur - window)
     s = torch.where(mask[:, None, None, :], s, NEG)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype), v_cache)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    vv = v_cache.permute(0, 2, 1, 3).reshape(B * KVH, S, Dv)
+    out = _product_f32(p.view(B * KVH, G, S), vv)
     return out.reshape(B, 1, H, Dv).to(q.dtype)

@@ -132,7 +132,8 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
         q = apply_rope(_proj(a["wq"], h, H, hd), pos, cfg.rope_theta)
         k = apply_rope(_proj(a["wk"], h, KV, hd), pos, cfg.rope_theta)
         v = _proj(a["wv"], h, KV, hd)
-        out = chunked_causal_attention(q, k, v, chunk_q=cfg.attn_chunk_q)
+        out = chunked_causal_attention(q, k, v, chunk_q=cfg.attn_chunk_q,
+                                       chunk_kv=cfg.attn_chunk_kv)
         x = x + out.reshape(B, S, H * hd) @ a["wo"]["w"]
         x = x + swiglu(p["ffn"], rms_norm(p["ln_ffn"], x, cfg.norm_eps))
         if collect_cache:

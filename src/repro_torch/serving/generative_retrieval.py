@@ -6,10 +6,21 @@ the request's KV cache across the ``M`` beams, then runs the constrained
 beam search of Algorithm 1 over SID tokens.  The prefill's last-position
 logits stand in for step 0, so a retrieve runs ``L - 1`` decode steps and
 ``L - 1`` beam reorders of the cache.
+
+Multi-tenant mode (DESIGN.md §4): with a stacked policy
+(``DecodePolicy.stacked(store)``, or just the ConstraintStore) ``retrieve``
+takes a per-request ``constraint_ids`` vector and decodes each batch row
+under its own constraint set.  ``set_constraints`` installs a refreshed
+matrix or store.  A swap is *hot* when it changes no tensor shape, dtype or
+static field of the policy (``n_states``, ``n_edges``, ``level_bmax``,
+``num_sets``, ...): then nothing keyed on those shapes (a captured CUDA
+graph, say) needs rebuilding.  That is the port's form of the reference's
+zero-recompile promise.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,15 +50,53 @@ class GenerativeRetriever:
                 f"constraints on {self.policy.constraints.device}, model on "
                 f"{self.device}")
 
-    def retrieve(self, history: np.ndarray):
-        """history (B, S) int -> (sids (B, M, L) int32, scores (B, M) f32)."""
+    # -- constraint plumbing -----------------------------------------------
+    @property
+    def num_sets(self) -> Optional[int]:
+        """Stacked-store member count, or None when single-tenant."""
+        return self.policy.num_sets
+
+    @property
+    def constraints(self):
+        """The TransitionMatrix or ConstraintStore served (read-only;
+        install a refreshed one with :meth:`set_constraints`)."""
+        return self.policy.constraints
+
+    def set_constraints(self, obj) -> bool:
+        """Install a refreshed matrix or store; returns True iff the swap was
+        cold (some tensor shape, dtype or static field of the policy
+        changed)."""
+        before = _signature(self.policy)
+        self.policy = self.policy.with_constraints(obj)
+        return _signature(self.policy) != before
+
+    # -- serving -------------------------------------------------------------
+    def retrieve(self, history: np.ndarray,
+                 constraint_ids: Optional[np.ndarray] = None):
+        """history (B, S) int -> (sids (B, M, L) int32, scores (B, M) f32).
+
+        ``constraint_ids`` (B,) selects each request's set from the stacked
+        store of ``self.policy``; an id outside ``[0, num_sets)`` raises
+        (the kernels would clamp it, serving the wrong constraint).
+        """
+        cids = None
+        if constraint_ids is not None:
+            cids = np.asarray(constraint_ids, np.int32)
+            num_sets = self.num_sets
+            if num_sets is not None and (cids.min() < 0
+                                         or cids.max() >= num_sets):
+                raise ValueError(
+                    f"constraint_ids must be in [0, {num_sets}), got "
+                    f"range [{cids.min()}, {cids.max()}]")
         with torch.inference_mode():
             hist = torch.as_tensor(np.asarray(history, np.int64),
                                    device=self.device)
-            tokens, scores = self._retrieve(hist)
+            if cids is not None:
+                cids = torch.as_tensor(cids, device=self.device)
+            tokens, scores = self._retrieve(hist, cids)
             return tokens.cpu().numpy(), scores.cpu().numpy()
 
-    def _retrieve(self, history: torch.Tensor):
+    def _retrieve(self, history: torch.Tensor, constraint_ids=None):
         B, S = history.shape
         M, V = self.M, self.V
         pre_logits, cache = transformer.prefill(
@@ -72,5 +121,26 @@ class GenerativeRetriever:
             logits_fn, cache, B, M, self.L, self.policy,
             carry_gather_fn=gather_cache,
             first_logits=pre_logits[:, 0, :V],
+            constraint_ids=constraint_ids,
         )
         return state.tokens, state.scores
+
+
+def _signature(policy) -> tuple:
+    """Every static field and tensor shape/dtype/device of a policy: what a
+    hot swap leaves unchanged."""
+    def fields(obj):
+        out = [type(obj).__name__]
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(v, torch.Tensor):
+                out.append((f.name, tuple(v.shape), v.dtype, v.device))
+            elif dataclasses.is_dataclass(v):
+                out.append((f.name, fields(v)))
+            elif isinstance(v, tuple) and v and dataclasses.is_dataclass(v[0]):
+                out.append((f.name, tuple(fields(x) for x in v)))
+            else:
+                out.append((f.name, v))
+        return tuple(out)
+
+    return fields(policy)

@@ -3,8 +3,8 @@
 The reference's ``init_params`` makes the weights; ``params_from_jax``
 carries them into the port, so both compute with the same numbers.  The
 float32 tolerance (rtol/atol 1e-4) covers the different matmul and
-reduction orders of the two frameworks (and the port's exact per-chunk
-softmax where the reference streams an online softmax).
+reduction orders of the two frameworks.  The bf16 attention cases hold the
+port to the reference's float32 products of bf16 operands.
 """
 import dataclasses
 
@@ -15,11 +15,12 @@ import pytest
 import torch
 
 from repro.configs.base import TransformerConfig as JaxTransformerConfig
+from repro.models import attention as jax_attention
 from repro.models import layers as jax_layers
 from repro.models import transformer as jax_transformer
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.convert import params_from_jax
-from repro_torch.models import layers, transformer
+from repro_torch.models import attention, layers, transformer
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -105,3 +106,58 @@ def test_unported_paths_raise(kw):
     _, cfg = _configs(**kw)
     with pytest.raises(NotImplementedError, match="not ported"):
         transformer.init_params(cfg, device="cpu")
+
+
+def _bf16_pair(x):
+    """The same bf16 values for both packages."""
+    j = jnp.asarray(x, jnp.bfloat16)
+    return j, torch.from_numpy(np.asarray(j, np.float32)).to(torch.bfloat16)
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 at each |x| (8 significand bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7).astype(np.float32)
+
+
+def test_decode_attention_bf16_matches_reference(rng):
+    """static-gr-3b's heads (24 over 8 KV heads, head dim 128) on a cache of
+    265 slots, five of them empty.  Both products are float32 results of
+    the bf16 operands, as in the reference, so the outputs agree to one
+    bf16 ulp (a float32 sum taken in another order may round the last bit
+    the other way) and on average to far below it."""
+    B, S, H, KV, Dh = 4, 265, 24, 8, 128
+    q, tq = _bf16_pair(rng.normal(size=(B, 1, H, Dh)))
+    k, tk = _bf16_pair(rng.normal(size=(B, S, KV, Dh)))
+    v, tv = _bf16_pair(rng.normal(size=(B, S, KV, Dh)))
+    pos = np.arange(S)
+    pos[260:] = -1
+    want = np.asarray(jax_attention.decode_attention(
+        q, k, v, jnp.asarray(pos), 259), np.float32)
+    got = attention.decode_attention(tq, tk, tv, torch.from_numpy(pos), 259)
+    assert got.dtype == torch.bfloat16
+    diff = np.abs(got.float().numpy() - want)
+    assert (diff <= _bf16_ulp(want)).all()
+    assert diff.mean() < 1e-5
+
+
+@pytest.mark.parametrize("chunk_kv", [1024, 16])
+def test_chunked_attention_bf16_matches_reference(rng, chunk_kv):
+    """Prefill attention in bf16, one key chunk (1024) or four (16).  The
+    port streams key chunks through the reference's online softmax:
+    unnormalized probabilities are cast to bf16 before the float32 PV
+    product and divided by their float32 sum at the end.  The score sums
+    run in another order, so a probability near a bf16 rounding boundary
+    can round the other way; the tolerance is one bf16 ulp in [0.5, 1)
+    (2**-8) per element and 1e-5 on average."""
+    q, tq = _bf16_pair(rng.normal(size=(2, 64, 8, 32)))
+    k, tk = _bf16_pair(rng.normal(size=(2, 64, 2, 32)))
+    v, tv = _bf16_pair(rng.normal(size=(2, 64, 2, 32)))
+    want = np.asarray(jax_attention.chunked_causal_attention(
+        q, k, v, chunk_q=16, chunk_kv=chunk_kv), np.float32)
+    got = attention.chunked_causal_attention(tq, tk, tv, chunk_q=16,
+                                             chunk_kv=chunk_kv)
+    assert got.dtype == torch.bfloat16
+    diff = np.abs(got.float().numpy() - want)
+    assert diff.max() <= 2.0 ** -8
+    assert diff.mean() < 1e-5
