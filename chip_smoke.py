@@ -15,7 +15,11 @@ Phases (any failure raises and the script exits non-zero):
               single-matrix path; the ``multi_constraint`` scenario's five
               slots (``fresh_22/45/67/90``: age <= 22.5/45/67.5/90;
               ``cat_01``: categories 0 and 1) are stacked into a
-              ``ConstraintStore`` at dense_d=2 and headroom 0.5.
+              ``ConstraintStore`` at dense_d=2 and headroom 0.5.  The
+              delta-compressed edge slab of each (DESIGN.md §11) is built on
+              the card; its dtype must be int16 and its bytes (row pointers,
+              deltas, level bases) at most 0.7x the uncompressed CSR's (the
+              reference's gate, ``benchmarks/memory_table.py``).
 3. kernels  — every CUDA kernel function against its plain PyTorch version
               on the card.  Single-matrix functions at the single path's
               shapes (nb = 2*70 rows, V = 2048, C = 72, each sparse level's
@@ -28,35 +32,44 @@ Phases (any failure raises and the script exits non-zero):
               a store of ten copies of the 20M trie (~14.7 GB, freed after)
               whose last member's deepest edges lie past 2^31 int32 elements
               from the store's base, where tokens and next states must equal
-              the single-matrix kernel's.  Tokens and next states must be
-              equal; scores equal when not fused, within rtol/atol 1e-5 when
-              fused.  Device times come from CUDA graphs of back-to-back
-              calls timed by CUDA events.  The golden traces of
-              ``tests/golden`` (``stacked`` included) are replayed through
-              the kernels, and the bf16 attention products on the card are
-              held against the CPU's.
+              the single-matrix kernel's.  The compressed-slab functions run
+              the same shapes over the slabs, an int32 slab (V > 32768, a
+              root row of ~40k slots for the mask kernels) besides, and must
+              also equal their uncompressed twin kernels on the same rows.
+              Tokens and next states must be equal; scores equal when not
+              fused, within rtol/atol 1e-5 when fused.  Device times come
+              from CUDA graphs of back-to-back calls timed by CUDA events.
+              The golden traces of ``tests/golden`` (``stacked`` included)
+              are replayed through the kernels, with and without the
+              compressed slab, and the bf16 attention products on the card
+              are held against the CPU's.
 4. single   — ``static_gr.CONFIG`` (26 layers, d_model 3072, GQA 24/8, bf16)
               with seeded random weights serving B=2 requests of 256-token
               histories at M=70, L=8 through ``GenerativeRetriever.retrieve``
-              under four single-matrix policies (topk / topk fused /
-              vocab-aligned / vocab-aligned fused).  Every live beam must be
-              in the constraint set, each policy's kernel must launch exactly
-              L - dense_d = 6 times per retrieve (the launch counters are
-              zeroed just before this phase and read just after), and one
-              batch rerun with the plain constraint step (``impl="plain"``)
-              must give equal SIDs and scores.
+              under eight single-matrix policies (topk / topk fused /
+              vocab-aligned / vocab-aligned fused, each without and with
+              ``compressed=True``, each run right after its twin).  Every
+              live beam must be in the constraint set, each policy's kernel
+              must launch exactly L - dense_d = 6 times per retrieve and no
+              other kernel (the launch counters are zeroed just before this
+              phase and read just after), each compressed policy must give
+              the SIDs and scores of its uncompressed twin bit for bit, and
+              one batch rerun with the plain constraint step
+              (``impl="plain"``) must give equal SIDs and scores.
 5. stacked  — the same model serving B=5 requests, request i under slot i
-              (``constraint_ids = [0..4]``), through four stacked policies.
-              Every live beam of row i must be in slot i's SID set; each
-              policy's stacked kernel must launch exactly 6 times per
-              retrieve and no single-matrix kernel at all (counters zeroed
-              just before, read just after).  Row 0 must equal, bit for bit,
+              (``constraint_ids = [0..4]``), through the eight stacked
+              policies.  Every live beam of row i must be in slot i's SID
+              set; each policy's kernel must launch exactly 6 times per
+              retrieve and no other kernel (counters zeroed just before,
+              read just after); each compressed policy must equal its
+              uncompressed twin bit for bit.  Row 0 must equal, bit for bit,
               the single-matrix retrieve over ``store.member(0)`` of the same
               batch; a plain rerun must give equal SIDs and scores; a hot
-              swap of a re-aged ``fresh_22`` must be reported hot and keep
-              row 0 compliant with the new set.
+              swap of a re-aged ``fresh_22`` under the default and the
+              compressed policy must be reported hot and keep row 0
+              compliant with the new set.
 6. report   — the card's ``nvidia-smi`` name and power limit, one JSON line
-              per kernel function, then the last line
+              with a row per kernel function, then the last line
               ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Without CUDA, or without the repository's ``src/`` beside it, the script
@@ -86,6 +99,7 @@ SLOTS = {  # the multi_constraint scenario's slots (name: predicate)
     "cat_01": lambda age, cat: np.isin(cat, (0, 1)),
 }
 HEADROOM = 0.5  # the registry's and the scenario's default
+SLAB_GATE = 0.7  # compressed / uncompressed CSR bytes (memory_table.py)
 
 
 def parse_args():
@@ -180,8 +194,43 @@ def build_indexes(rng, n):
         f"card ({time.time() - t0:.1f}s host build)")
     slot_sids = [np.asfortranarray(sids[m]) for m in masks.values()]
     offsets = [fts[name].level_offsets for name in SLOTS]
+    slab, store_slab = build_slabs(tm, store)
     return dict(sids=sids, ft=ft, tm=tm, store=store, slot_sids=slot_sids,
-                level_offsets=offsets, sorted_sids=np.asfortranarray(sids))
+                level_offsets=offsets, sorted_sids=np.asfortranarray(sids),
+                slab=slab, store_slab=store_slab)
+
+
+def build_slabs(tm, store):
+    """The compressed edge slabs of the trie and of the store, built on the
+    card; each must be int16 and at most SLAB_GATE of the CSR bytes."""
+    from repro_torch.core import memory_model
+    from repro_torch.core.compressed_slab import CompressedSlab
+
+    slabs = []
+    for name, tables in (("trie", tm), ("store", store)):
+        t0 = time.time()
+        slab = CompressedSlab.build(tables)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        if name == "trie":
+            m = memory_model.measure(tm, slab)
+            comp, full = m["compressed_bytes"], m["sparse_bytes"]
+        else:  # measure() needs n_constraints, which a store has per member
+            rp = store.row_pointers.numel() * store.row_pointers.element_size()
+            comp = rp + slab.nbytes()
+            full = rp + store.edges.numel() * store.edges.element_size()
+        ratio = comp / full
+        log(f"  compressed slab of the {name}: {slab.tok_delta.dtype} deltas "
+            f"{tuple(slab.tok_delta.shape)}, built in {secs:.2f}s on the card;"
+            f" row pointers + slab {comp / 1e9:.3f} GB against {full / 1e9:.3f}"
+            f" GB uncompressed ({ratio:.3f}x)")
+        if slab.tok_delta.dtype != torch.int16:
+            raise AssertionError(f"{name} slab is {slab.tok_delta.dtype}")
+        if ratio > SLAB_GATE:
+            raise AssertionError(f"{name} slab at {ratio:.3f}x the CSR bytes "
+                                 f"(gate {SLAB_GATE})")
+        slabs.append(slab)
+    return slabs
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +250,24 @@ KERNELS = {
                           "src/repro/kernels/vntk.py:965"),
     "vntk_stacked_mask_fused": ("vntk_stacked_mask", True,
                                 "src/repro/kernels/vntk.py:993"),
+    "vntk_compressed_topk": ("vntk_compressed_topk", False,
+                             "src/repro/kernels/vntk.py:1126"),
+    "vntk_compressed_topk_fused": ("vntk_compressed_topk", True,
+                                   "src/repro/kernels/vntk.py:1126"),
+    "vntk_compressed_mask": ("vntk_compressed_mask", False,
+                             "src/repro/kernels/vntk.py:1054"),
+    "vntk_compressed_mask_fused": ("vntk_compressed_mask", True,
+                                   "src/repro/kernels/vntk.py:1054"),
+    "vntk_stacked_compressed_topk": ("vntk_stacked_compressed_topk", False,
+                                     "src/repro/kernels/vntk.py:1163"),
+    "vntk_stacked_compressed_topk_fused": ("vntk_stacked_compressed_topk",
+                                           True,
+                                           "src/repro/kernels/vntk.py:1163"),
+    "vntk_stacked_compressed_mask": ("vntk_stacked_compressed_mask", False,
+                                     "src/repro/kernels/vntk.py:1091"),
+    "vntk_stacked_compressed_mask_fused": ("vntk_stacked_compressed_mask",
+                                           True,
+                                           "src/repro/kernels/vntk.py:1091"),
 }
 SOURCE = "src/repro_torch/kernels/csrc/vntk.cu"
 
@@ -214,21 +281,26 @@ def n_child(rp, nodes, cids=None) -> np.ndarray:
     return (rp[k, n + 1] - rp[k, n]).cpu().numpy()
 
 
-def needed_bytes(topk, fused, stacked, children, bmax, V, width) -> int:
+def needed_bytes(topk, fused, stacked, children, bmax, V, width,
+                 edge_bytes=8, base_bytes=0) -> int:
     """Bytes the function must move for these inputs: the constraint ids
-    (stacked), the nodes, the row-pointer pairs and valid edges it reads,
-    the log-probs of the valid slots (the whole row when it normalizes), and
-    its outputs, each once."""
+    (stacked), the nodes, the row-pointer pairs and valid edges it reads
+    (``edge_bytes`` each: an int32 pair, or one delta of a compressed slab,
+    whose next-state bases are ``base_bytes``), the log-probs of the valid
+    slots (the whole row when it normalizes), and its outputs, each once."""
     n_real = int(np.minimum(np.maximum(children, 0), bmax).sum())
     nb = children.shape[0]
-    reads = nb * 4 * (2 if stacked else 1) + nb * 8 + n_real * 8
-    reads += nb * V * 4 if fused else n_real * 4
+    reads = nb * 4 * (2 if stacked else 1) + nb * 8 + n_real * edge_bytes
+    reads += base_bytes + (nb * V * 4 if fused else n_real * 4)
     writes = nb * width * 12 if topk else nb * V * 8
     return reads + writes
 
 
 class KernelCheck:
-    """Runs one kernel function and its plain version on the same inputs."""
+    """Runs one kernel function and its plain version on the same inputs.
+
+    ``tables`` is ``(row_pointers, edges)``, or ``(row_pointers, tok_delta,
+    base)`` for a compressed-slab function."""
 
     def __init__(self, name):
         from repro_torch.kernels import vntk as kv
@@ -237,15 +309,16 @@ class KernelCheck:
         self.kernel, self.fused, self.replaces = KERNELS[name]
         self.stacked = "stacked" in self.kernel
         self.topk = self.kernel.endswith("topk")
+        self.compressed = "compressed" in self.kernel
         self.cuda = getattr(kv, f"{self.kernel}_cuda")
         self.plain = getattr(kv, f"{self.kernel}_plain")
         self.max_abs_err = 0.0
         self.times = []  # (ms, plain_ms, bound_ms) per main-path level
 
-    def args(self, values, nodes, cids, rp, edges, bmax, V, width):
+    def args(self, values, nodes, cids, tables, bmax, V, width):
         head = (values, nodes) + ((cids,) if self.stacked else ())
-        return (head + (rp, edges, bmax, V) + ((width,) if self.topk else ())
-                + (self.fused,))
+        return (head + tuple(tables) + (bmax, V)
+                + ((width,) if self.topk else ()) + (self.fused,))
 
     def compare(self, label, *a, want=None):
         """Kernel against the plain version (or against ``want``, the
@@ -268,21 +341,44 @@ class KernelCheck:
                                  f"(max abs err {err:g})")
         return got
 
-    def time(self, values, nodes, cids, rp, edges, bmax, V, width):
-        a = self.args(values, nodes, cids, rp, edges, bmax, V, width)
+    def compare_twin(self, label, values, nodes, cids, tables, pairs, bmax, V,
+                     width):
+        """A compressed function against the plain version and, bit for
+        bit, against its uncompressed twin kernel over ``pairs``
+        (``(row_pointers, edges)`` of the same trie)."""
+        from repro_torch.kernels import vntk as kv
+
+        got = self.compare(label, values, nodes, cids, tables, bmax, V, width)
+        twin = getattr(kv, self.kernel.replace("_compressed", "") + "_cuda")
+        head = (values, nodes) + ((cids,) if self.stacked else ())
+        want = twin(*head, *pairs, bmax, V, *((width,) if self.topk else ()),
+                    self.fused)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{self.name} [{label}]: differs from its "
+                                 "uncompressed twin kernel")
+
+    def time(self, values, nodes, cids, tables, bmax, V, width):
+        a = self.args(values, nodes, cids, tables, bmax, V, width)
         ms = device_ms(lambda: self.cuda(*a))
         plain_ms = device_ms(lambda: self.plain(*a), iters=10)
-        children = n_child(rp, nodes, cids if self.stacked else None)
+        children = n_child(tables[0], nodes, cids if self.stacked else None)
+        edge_bytes, base_bytes = 8, 0
+        if self.compressed:
+            edge_bytes = tables[1].element_size()
+            base_bytes = 4 * tables[2].numel()
         bound = needed_bytes(self.topk, self.fused, self.stacked, children,
-                             bmax, V, width) / HBM_BYTES_PER_S * 1e3
+                             bmax, V, width, edge_bytes,
+                             base_bytes) / HBM_BYTES_PER_S * 1e3
         self.times.append((ms, plain_ms, bound))
 
     def summary(self, levels):
         ms, plain_ms, bound = np.mean(self.times, axis=0)
-        log(f"  {self.name}: equal to plain at levels {levels} and stress "
-            f"shapes; max abs err {self.max_abs_err:.3g}; {ms * 1e3:.2f} us "
-            f"(plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us) "
-            f"per launch, mean over levels")
+        twin = " and its uncompressed twin" if self.compressed else ""
+        log(f"  {self.name}: equal to plain{twin} at levels {levels} and "
+            f"stress shapes; max abs err {self.max_abs_err:.3g}; "
+            f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound "
+            f"{bound * 1e3:.3f} us) per launch, mean over levels")
 
 
 def level_nodes(rng, offsets, level, nb):
@@ -305,43 +401,71 @@ def cuda_ints(a):
 
 def phase_kernels(rng, idx, M, checks):
     """The single-matrix functions at the single path's shapes and stress
-    shapes."""
+    shapes; the compressed ones over the slab, against their twins too."""
+    from repro_torch.core.compressed_slab import CompressedSlab
     from repro_torch.core.trie import build_flat_trie
     from repro_torch.core.transition_matrix import TransitionMatrix
     from repro_torch.core.vntk import candidate_width
 
-    ft, tm = idx["ft"], idx["tm"]
+    ft, tm, slab = idx["ft"], idx["tm"], idx["slab"]
     V, L, d = ft.vocab_size, ft.sid_length, ft.dense_d
     nb, C = 2 * M, candidate_width(M, ft.vocab_size)
-    tables = (tm.row_pointers, tm.edges)
     # the root row of a dense_d=0 trie: one CSR row of every first token
     sids = idx["sids"]  # ~200k of them, spread over the sorted catalog
     ft0 = build_flat_trie(sids[::max(1, len(sids) // 200_000)], V, dense_d=0)
     tm0 = TransitionMatrix.from_flat_trie(ft0, device="cuda")
+    slab0 = CompressedSlab.from_matrix(tm0)
+    # an int32 slab: 200k SIDs of length 3 over V = 40000 > 32768, dense_d=0
+    Vb = 40_000
+    ftb = build_flat_trie(rng.integers(0, Vb, (200_000, 3)), Vb, dense_d=0)
+    tmb = TransitionMatrix.from_flat_trie(ftb, device="cuda")
+    slabb = CompressedSlab.from_matrix(tmb)
+    if slabb.tok_delta.dtype != torch.int32:
+        raise AssertionError(f"V={Vb} slab is {slabb.tok_delta.dtype}")
+
+    def tables(step, t=tm, sl=slab):  # what the function reads at `step`
+        return ((t.row_pointers, sl.tok_delta, sl.base_for_step(step))
+                if chk.compressed else (t.row_pointers, t.edges))
+
+    def compare(label, *a, step, t=tm, sl=slab):
+        values, nodes, bmax, V_ = a
+        tab, pr = tables(step, t, sl), (t.row_pointers, t.edges)
+        if chk.compressed:
+            chk.compare_twin(label, values, nodes, None, tab, pr, bmax, V_, C)
+        else:
+            chk.compare(label, values, nodes, None, tab, bmax, V_, C)
+
     for chk in checks:
         for level in range(d, L):
             bmax = int(ft.level_bmax[level])
             nodes = cuda_ints(level_nodes(rng, ft.level_offsets, level, nb))
             values = make_values(rng, nb, V, chk.fused)
-            a = (values, nodes, None, *tables, bmax, V, C)
-            chk.compare(f"level {level}", *a)
-            chk.time(*a)
+            compare(f"level {level}", values, nodes, bmax, V, step=level)
+            chk.time(values, nodes, None, tables(level), bmax, V, C)
         # stress: prime row count with a quarter of the rows at the sink,
         # tie-heavy values, and a bmax >= 512 root row
         nodes_np = level_nodes(rng, ft.level_offsets, d, 139)
         nodes_np[rng.random(139) < 0.25] = 0
         values = make_values(rng, 139, V, chk.fused, ties=True)
-        chk.compare("prime nb, sink rows, ties", values, cuda_ints(nodes_np),
-                    None, *tables, int(ft.level_bmax[d]), V, C)
+        compare("prime nb, sink rows, ties", values, cuda_ints(nodes_np),
+                int(ft.level_bmax[d]), V, step=d)
         bmax0 = int(ft0.level_bmax[0])
         if bmax0 < 512:
             raise AssertionError(f"stress root row has bmax {bmax0} < 512")
         nodes_np = np.ones(nb, np.int32)
         nodes_np[::7] = 0
-        chk.compare(f"bmax {bmax0} root row", make_values(rng, nb, V, chk.fused),
-                    cuda_ints(nodes_np), None, tm0.row_pointers, tm0.edges,
-                    bmax0, V, C)
+        compare(f"bmax {bmax0} root row", make_values(rng, nb, V, chk.fused),
+                cuda_ints(nodes_np), bmax0, V, step=0, t=tm0, sl=slab0)
+        if chk.compressed:  # the int32 slab: its root row (mask) or level 1
+            step = 1 if chk.topk else 0  # (a ~40k-slot topk row overflows smem)
+            nodes_np = level_nodes(rng, ftb.level_offsets, step, nb)
+            nodes_np[::5] = 0
+            compare(f"int32 slab, V={Vb}, step {step}",
+                    make_values(rng, nb, Vb, chk.fused), cuda_ints(nodes_np),
+                    int(ftb.level_bmax[step]), Vb, step=step, t=tmb, sl=slabb)
         chk.summary(f"{d}-{L - 1}")
+    log(f"  int32 slab: V={Vb}, {tmb.n_edges} edges, root row of "
+        f"{int(ftb.level_bmax[0])} slots")
 
 
 def stacked_rows(rng, offsets, cids, level):
@@ -353,39 +477,55 @@ def stacked_rows(rng, offsets, cids, level):
 def phase_stacked_kernels(rng, idx, M, checks, full_size):
     """The stacked functions at the stacked path's shapes, stress shapes and
     the 64-bit member offset stress (which passes 2^31 int32 elements only
-    at the full catalog size)."""
+    at the full catalog size); the compressed ones over the store's slab,
+    against their twins too."""
     from repro_torch.constraints import ConstraintStore
+    from repro_torch.core.compressed_slab import CompressedSlab
     from repro_torch.core.vntk import candidate_width
     from repro_torch.kernels import vntk as kv
 
     store, offsets, ft = idx["store"], idx["level_offsets"], idx["ft"]
     V, L, d, K = store.vocab_size, store.sid_length, store.dense_d, store.num_sets
     nb, C = K * M, candidate_width(M, V)
-    tables = (store.row_pointers, store.edges)
     cids_np = np.repeat(np.arange(K, dtype=np.int32), M)  # a request per slot
+
+    def tables(step, st=store, sl=idx["store_slab"]):
+        return ((st.row_pointers, sl.tok_delta, sl.base_for_step(step))
+                if chk.compressed else (st.row_pointers, st.edges))
+
+    def compare(label, values, nodes, cids, bmax, step, st=store,
+                sl=idx["store_slab"], want=None):
+        tab, pr = tables(step, st, sl), (st.row_pointers, st.edges)
+        if chk.compressed and want is None:
+            chk.compare_twin(label, values, nodes, cids, tab, pr, bmax, V, C)
+        else:
+            chk.compare(label, values, nodes, cids, tab, bmax, V, C,
+                        want=want)
+
     for chk in checks:
         for level in range(d, L):
             bmax = store.bmax_for_step(level)
             nodes = cuda_ints(stacked_rows(rng, offsets, cids_np, level))
             values = make_values(rng, nb, V, chk.fused)
-            a = (values, nodes, cuda_ints(cids_np), *tables, bmax, V, C)
-            chk.compare(f"level {level}", *a)
-            chk.time(*a)
+            cids = cuda_ints(cids_np)
+            compare(f"level {level}", values, nodes, cids, bmax, level)
+            chk.time(values, nodes, cids, tables(level), bmax, V, C)
         # stress: prime nb, mixed ids (two out of range: the kernel clamps
         # them as the plain version does), a quarter at the sink, ties
         stress = rng.integers(0, K, 349).astype(np.int32)
         stress[:2] = (-1, K + 2)
         nodes_np = stacked_rows(rng, offsets, stress, d)
         nodes_np[rng.random(349) < 0.25] = 0
-        chk.compare("prime nb, sink rows, clamped ids, ties",
-                    make_values(rng, 349, V, chk.fused, ties=True),
-                    cuda_ints(nodes_np), cuda_ints(stress), *tables,
-                    store.bmax_for_step(d), V, C)
+        compare("prime nb, sink rows, clamped ids, ties",
+                make_values(rng, 349, V, chk.fused, ties=True),
+                cuda_ints(nodes_np), cuda_ints(stress),
+                store.bmax_for_step(d), d)
     # offset stress: ten copies of the trie at headroom 0; rows on the last
     # member's deepest level, whose edges lie past 2^31 int32 elements
     t0 = time.time()
     big = ConstraintStore.from_matrices([idx["tm"]] * 10, headroom=0.0,
                                         device="cuda")
+    big_slab = CompressedSlab.from_store(big)
     torch.cuda.synchronize()
     deep = L - 1
     nodes = cuda_ints(level_nodes(rng, ft.level_offsets, deep, nb))
@@ -395,20 +535,27 @@ def phase_stacked_kernels(rng, idx, M, checks, full_size):
     if full_size and elem < 2 ** 31:
         raise AssertionError(f"offset stress reaches only int32 element {elem}")
     bmax = big.bmax_for_step(deep)
+    tm, slab = idx["tm"], idx["slab"]
     for chk in checks:
         values = make_values(rng, nb, V, chk.fused)
         single = getattr(kv, chk.kernel.replace("_stacked", "") + "_cuda")
-        want = single(values, nodes, idx["tm"].row_pointers, idx["tm"].edges,
-                      bmax, V, *((C,) if chk.topk else ()), chk.fused)
-        a = (values, nodes, cids, big.row_pointers, big.edges, bmax, V, C)
-        chk.compare("offset stress vs single-matrix kernel", *a, want=want)
-        chk.compare("offset stress vs plain", *a)
+        one = ((tm.row_pointers, slab.tok_delta, slab.base_for_step(deep))
+               if chk.compressed else (tm.row_pointers, tm.edges))
+        want = single(values, nodes, *one, bmax, V,
+                      *((C,) if chk.topk else ()), chk.fused)
+        compare("offset stress vs single-matrix kernel", values, nodes, cids,
+                bmax, deep, big, big_slab, want=want)
+        compare("offset stress vs plain", values, nodes, cids, bmax, deep,
+                big, big_slab)
         chk.summary(f"{d}-{L - 1}")
-    log(f"  offset stress: {big.nbytes() / 1e9:.3f} GB store of 10 members, "
-        f"rows on member 9's level {deep} from int32 element {elem} "
-        f"({'past' if elem >= 2 ** 31 else 'below'} 2^31) equal to the "
-        f"single-matrix kernel ({time.time() - t0:.1f}s)")
-    del big
+    delta_bytes = 9 * big_slab.tok_delta.shape[1] * 2 + 2 * first
+    log(f"  offset stress: {big.nbytes() / 1e9:.3f} GB store of 10 members "
+        f"and its {big_slab.nbytes() / 1e9:.3f} GB slab, rows on member 9's "
+        f"level {deep} from int32 element {elem} "
+        f"({'past' if elem >= 2 ** 31 else 'below'} 2^31) and slab byte "
+        f"{delta_bytes} ({'past' if delta_bytes >= 2 ** 31 else 'below'} "
+        f"2^31) equal to the single-matrix kernels ({time.time() - t0:.1f}s)")
+    del big, big_slab
     torch.cuda.empty_cache()
 
 
@@ -437,29 +584,37 @@ def phase_golden():
         return table[step][last.long()], carry
 
     ones = np.ones(B, np.int32)
-    for name, policy, trace, cids in (
-            ("static", DecodePolicy.static(tm), "static", None),
-            ("static_fused", DecodePolicy.static(tm, fused=True),
-             "static_fused", None),
-            ("static_d0", DecodePolicy.static(tm_d0), "static_d0", None),
-            ("stacked", DecodePolicy.stacked(store), "stacked", ones),
-            ("stacked_fused", DecodePolicy.stacked(store, fused=True),
-             "stacked", ones)):
-        for topk in (True, False):
-            _, _, tr = beam_search(logits_fn, None, B, M, L,
-                                   policy.with_topk(topk), constraint_ids=cids,
-                                   return_trace=True)
-            if not np.array_equal(tr.tokens.cpu().numpy(),
-                                  traces[f"{trace}_trace_tokens"]):
-                raise AssertionError(f"golden {name} topk={topk}: trace tokens")
-            tol = (dict(rtol=1e-5, atol=1e-5) if "fused" in name
-                   else dict(rtol=1e-6))  # the fused kernel's own lse
-            np.testing.assert_allclose(tr.scores.cpu().numpy(),
-                                       traces[f"{trace}_trace_scores"],
-                                       err_msg=name, **tol)
+    for compressed in (False, True):
+        for name, policy, trace, cids in (
+                ("static", DecodePolicy.static(tm, compressed=compressed),
+                 "static", None),
+                ("static_fused", DecodePolicy.static(
+                    tm, fused=True, compressed=compressed), "static_fused",
+                 None),
+                ("static_d0", DecodePolicy.static(tm_d0,
+                                                  compressed=compressed),
+                 "static_d0", None),
+                ("stacked", DecodePolicy.stacked(store, compressed=compressed),
+                 "stacked", ones),
+                ("stacked_fused", DecodePolicy.stacked(
+                    store, fused=True, compressed=compressed), "stacked",
+                 ones)):
+            for topk in (True, False):
+                _, _, tr = beam_search(logits_fn, None, B, M, L,
+                                       policy.with_topk(topk),
+                                       constraint_ids=cids, return_trace=True)
+                label = f"golden {name} topk={topk} compressed={compressed}"
+                if not np.array_equal(tr.tokens.cpu().numpy(),
+                                      traces[f"{trace}_trace_tokens"]):
+                    raise AssertionError(f"{label}: trace tokens")
+                tol = (dict(rtol=1e-5, atol=1e-5) if "fused" in name
+                       else dict(rtol=1e-6))  # the fused kernel's own lse
+                np.testing.assert_allclose(tr.scores.cpu().numpy(),
+                                           traces[f"{trace}_trace_scores"],
+                                           err_msg=label, **tol)
     log("  golden traces static/static_fused/static_d0/stacked (and stacked "
-        "through the fused kernels; topk and dense advance) reproduced "
-        "through the kernels")
+        "through the fused kernels; topk and dense advance; without and with "
+        "the compressed slab) reproduced through the kernels")
 
 
 def phase_attention(rng):
@@ -551,6 +706,52 @@ def run_policies(policies, make_retriever, hists, check, n_sparse):
     return first, median_ms
 
 
+def plain_policy(policy):
+    """``policy`` with the plain constraint step on its sparse levels (its
+    compressed slab, if any, kept)."""
+    return dataclasses.replace(policy, backends=tuple(
+        b if b.levels == "dense" else dataclasses.replace(b, impl="plain")
+        for b in policy.backends))
+
+
+def check_twins(first):
+    """Each compressed policy's first batch equals its uncompressed twin's
+    (``<path>_slab<flags>`` against ``<path><flags>``), bit for bit."""
+    for name, (beams, scores) in first.items():
+        if "_slab" not in name:
+            continue
+        twin = first[name.replace("_slab", "")]
+        if not (np.array_equal(beams, twin[0])
+                and np.array_equal(scores, twin[1])):
+            raise AssertionError(f"{name}: SIDs or scores differ from the "
+                                 "uncompressed policy's")
+        log(f"  {name}: SIDs and scores bit-equal to "
+            f"{name.replace('_slab', '')}'s over the same batch")
+
+
+def with_slab_twins(policies, make, tables, path, counter):
+    """``policies`` (the four uncompressed ones of ``path``), each followed
+    by its compressed twin built through the entry point ``make`` (a slab
+    each), so the two run in turns; values are (policy, counter it must
+    reach)."""
+    t0 = time.time()
+    slabbed = {
+        f"{path}_slab": (make(tables, compressed=True), counter),
+        f"{path}_slab_fused": (make(tables, fused=True, compressed=True),
+                               f"{counter}_fused"),
+        f"{path}_slab_notopk": (make(tables, topk=False, compressed=True),
+                                counter.replace("topk", "mask")),
+        f"{path}_slab_fused_notopk": (
+            make(tables, fused=True, topk=False, compressed=True),
+            counter.replace("topk", "mask") + "_fused"),
+    }
+    torch.cuda.synchronize()
+    log(f"  four compressed {path} policies built in "
+        f"{time.time() - t0:.1f}s (a slab each)")
+    return dict(kv for pair in zip(policies.items(), slabbed.items())
+                for kv in pair)
+
+
 def phase_single(args, rng, params, cfg, idx):
     from repro_torch.configs import static_gr
     from repro_torch.decoding import DecodePolicy
@@ -575,6 +776,8 @@ def phase_single(args, rng, params, cfg, idx):
         "static_fused_notopk": (DecodePolicy.static(tm, fused=True, topk=False),
                                 "vntk_mask_fused"),
     }
+    policies = with_slab_twins(policies, DecodePolicy.static, tm, "static",
+                               "vntk_compressed_topk")
 
     def check(name, beams, scores):
         check_batch(name, beams, scores, (B, M, L))
@@ -607,20 +810,23 @@ def phase_single(args, rng, params, cfg, idx):
         f"ms; per decode step (static: retrieve minus prefill over {L - 1} "
         f"steps) {(median_ms['static'] - pre_ms) / (L - 1):.2f} ms")
 
+    check_twins(first)
+
     # the same batch with the plain constraint step on the same card/model
-    for name in ("static", "static_notopk"):
-        plain = DecodePolicy.static(tm, impl="plain",
-                                    topk=policies[name][0].candidate_topk)
-        beams, scores = make(plain)(hists[0])
+    for name in ("static", "static_notopk", "static_slab",
+                 "static_slab_notopk"):
+        beams, scores = make(plain_policy(policies[name][0]))(hists[0])
         if not (np.array_equal(beams, first[name][0])
                 and np.array_equal(scores, first[name][1])):
             raise AssertionError(f"{name}: plain constraint step disagrees")
         log(f"  {name}: plain constraint step gives equal SIDs and scores")
 
     if args.profile:
-        r = GenerativeRetriever(params, cfg, policies["static"][0], L, V,
-                                beam_size=M)
-        profile_retrieve(lambda: r.retrieve(hists[1]), median_ms["static"])
+        for name in ("static", "static_slab"):
+            r = GenerativeRetriever(params, cfg, policies[name][0], L, V,
+                                    beam_size=M)
+            log(f"  profile of {name}:")
+            profile_retrieve(lambda: r.retrieve(hists[1]), median_ms[name])
     return launches
 
 
@@ -650,6 +856,8 @@ def phase_stacked(args, rng, params, cfg, idx):
                                                       topk=False),
                                  "vntk_stacked_mask_fused"),
     }
+    policies = with_slab_twins(policies, DecodePolicy.stacked, store,
+                               "stacked", "vntk_stacked_compressed_topk")
     slot_sids = list(idx["slot_sids"])
 
     def check(name, beams, scores):
@@ -682,42 +890,58 @@ def phase_stacked(args, rng, params, cfg, idx):
     log("  stacked row 0 bit-equal to DecodePolicy.static(store.member(0)) "
         "over the same batch")
 
-    for name in ("stacked", "stacked_notopk"):
-        plain = DecodePolicy.stacked(store, impl="plain",
-                                     topk=policies[name][0].candidate_topk)
-        beams, scores = make(plain)(hists[0])
+    check_twins(first)
+
+    for name in ("stacked", "stacked_notopk", "stacked_slab",
+                 "stacked_slab_notopk"):
+        beams, scores = make(plain_policy(policies[name][0]))(hists[0])
         if not (np.array_equal(beams, first[name][0])
                 and np.array_equal(scores, first[name][1])):
             raise AssertionError(f"{name}: plain constraint step disagrees")
         log(f"  {name}: plain constraint step gives equal SIDs and scores")
 
-    # hot swap: re-age the catalog and rebuild fresh_22 into slot 0
+    # hot swap: re-age the catalog and rebuild fresh_22 into slot 0, under
+    # the default policy and under the compressed one (which rebuilds its
+    # slab for the new store)
+    policies = {k: policies[k] for k in ("stacked", "stacked_slab")}
     t0 = time.time()
-    r = GenerativeRetriever(params, cfg, policies["stacked"][0], L, V,
-                            beam_size=M)
     sids = idx["sids"]
     age = rng.uniform(0.0, 90.0, sids.shape[0])
     fresh = sids[SLOTS["fresh_22"](age, None)]
     new = TransitionMatrix.from_flat_trie(
         build_flat_trie(fresh, V, dense_d=store.dense_d), device="cuda")
-    cold = r.set_constraints(store.with_member(0, new))
-    del policies, new
-    if cold:
-        raise AssertionError("set_constraints reported a cold swap")
+    swapped = store.with_member(0, new)
+    del new
+    torch.cuda.synchronize()
+    log(f"  re-aged fresh_22 ({fresh.shape[0]} SIDs) rebuilt and swapped into "
+        f"a copy of the store in {time.time() - t0:.1f}s")
     slot_sids[0] = np.asfortranarray(fresh)
-    before = dict(kv.LAUNCHES)
-    beams, scores = r.retrieve(hists[1], cids)
-    check("stacked after the swap", beams, scores)
-    rose = {k: kv.LAUNCHES[k] - before[k] for k in kv.LAUNCHES}
-    if rose != {k: (n_sparse if k == "vntk_stacked_topk" else 0) for k in rose}:
-        raise AssertionError(f"after the swap: launches {rose}")
-    log(f"  hot swap of a re-aged fresh_22 ({fresh.shape[0]} SIDs): "
-        f"set_constraints -> cold={cold}; row 0 compliant with the new set, "
-        f"{n_sparse} launches per retrieve ({time.time() - t0:.1f}s with the "
-        "rebuild)")
+    swapped_r = {}
+    for name, (policy, counter) in policies.items():
+        r = GenerativeRetriever(params, cfg, policy, L, V, beam_size=M)
+        t0 = time.time()
+        cold = r.set_constraints(swapped)
+        torch.cuda.synchronize()
+        swap_s = time.time() - t0
+        if cold:
+            raise AssertionError(f"{name}: set_constraints reported a cold "
+                                 "swap")
+        before = dict(kv.LAUNCHES)
+        beams, scores = r.retrieve(hists[1], cids)
+        check(f"{name} after the swap", beams, scores)
+        rose = {k: kv.LAUNCHES[k] - before[k] for k in kv.LAUNCHES}
+        if rose != {k: (n_sparse if k == counter else 0) for k in rose}:
+            raise AssertionError(f"{name} after the swap: launches {rose}")
+        log(f"  {name}: set_constraints -> cold={cold} in {swap_s:.2f}s; row "
+            f"0 compliant with the new set, {counter} launched {n_sparse} "
+            "times per retrieve")
+        swapped_r[name] = r
+    del policies
     if args.profile:
-        profile_retrieve(lambda: r.retrieve(hists[1], cids),
-                         median_ms["stacked"])
+        for name, r in swapped_r.items():
+            log(f"  profile of {name} (after the swap):")
+            profile_retrieve(lambda: r.retrieve(hists[1], cids),
+                             median_ms[name])
     return launches
 
 
@@ -785,6 +1009,7 @@ def main() -> int:
     phase_stacked_kernels(rng, idx, M,
                           [c for c in checks.values() if c.stacked],
                           full_size=args.constraints is None)
+    del idx["store_slab"]  # the stacked policies build their own
     phase_golden()
     phase_attention(rng)
 
@@ -801,7 +1026,8 @@ def main() -> int:
     stacked = phase_stacked(args, rng, params, cfg, idx)
     launches.update({k: v for k, v in stacked.items() if "stacked" in k})
 
-    log(f"phase 6: report ({time.time() - t_start:.1f}s total)")
+    log(f"phase 6: report ({time.time() - t_start:.1f}s total; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB)")
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)

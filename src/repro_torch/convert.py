@@ -12,11 +12,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.constraints.store import _LEAF_FIELDS, ConstraintStore
+from repro_torch.core.compressed_slab import CompressedSlab
 from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.models.transformer import check_supported, torch_dtype
 
 __all__ = ["params_from_jax", "transition_matrix_from_numpy",
-           "store_from_numpy"]
+           "store_from_numpy", "slab_from_numpy"]
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -72,3 +73,13 @@ def store_from_numpy(store, device=None) -> ConstraintStore:
                 n_states=int(store.n_states), n_edges=int(store.n_edges),
                 num_sets=int(store.num_sets))
     return ConstraintStore.from_numpy(arrays, meta, device)
+
+
+def slab_from_numpy(slab, device=None) -> CompressedSlab:
+    """A port :class:`CompressedSlab` from any object with the reference
+    slab's fields (arrays readable by ``np.asarray``), dtypes kept."""
+    dev = resolve_device(device)
+    return CompressedSlab(
+        tok_delta=torch.from_numpy(np.array(slab.tok_delta)).to(dev),
+        level_base=torch.from_numpy(np.array(slab.level_base)).to(dev),
+        vocab_size=int(slab.vocab_size), sid_length=int(slab.sid_length))

@@ -1,8 +1,9 @@
 """Offline trie construction and CSR flattening (paper §4.2).
 
-A numpy-only copy of ``repro.core.trie``'s builder, array for array: a single
+A numpy copy of ``repro.core.trie``'s builder, array for array: a single
 lexicographic sort of the restricted vocabulary followed by per-level
-prefix-change scans, never a pointer-based trie.
+prefix-change scans, never a pointer-based trie.  :func:`infer_level_blocks`
+checks a built slab's canonical layout in torch, on the tensors' own device.
 
 State-id convention (paper Figure 1):
   * state 0            -- the sink: no outgoing transitions.
@@ -19,9 +20,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 __all__ = ["FlatTrie", "build_flat_trie", "pack_bits", "sorted_unique_sids",
-           "check_index_capacity"]
+           "check_index_capacity", "LevelBlocks", "infer_level_blocks"]
 
 
 def pack_bits(bits: np.ndarray) -> np.ndarray:
@@ -244,3 +246,99 @@ def build_flat_trie(
         trie.l1_states = l1_states
     return trie
 
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelBlocks:
+    """Per-level structure of a canonical CSR slab (DESIGN.md §11).
+
+    ``build_flat_trie`` emits edges level-major with, per level, consecutive
+    destination states (``dst[e] = e + base`` over the level's edge block)
+    and token-ascending rows.  Indexing is by decode step ``s``:
+      * ``edge_offsets (L+1,)`` — step-``s`` edges occupy
+        ``[edge_offsets[s], edge_offsets[s+1])`` (empty on dense steps);
+      * ``base (L,)`` — ``next_state = edge_index + base[s]`` (0 on dense
+        steps);
+      * ``state_offsets (L+2,)`` — first state id of each level (1 for the
+        trimmed dense levels).
+    """
+
+    edge_offsets: np.ndarray
+    base: np.ndarray
+    state_offsets: np.ndarray
+
+
+def infer_level_blocks(row_pointers, edges, *, n_states: int, n_edges: int,
+                       sid_length: int, dense_d: int,
+                       vocab_size: int | None = None) -> LevelBlocks:
+    """Recover and verify the per-level blocks of a bare ``(row_pointers,
+    edges)`` pair (numpy arrays or torch tensors, read on their device).
+
+    The blocks follow from two facts of the canonical builder's output:
+    states of one level are contiguous, and each level's edges target the
+    next level's consecutive states.  Every inferred property is then
+    checked against the arrays; a slab the canonical builder did not make
+    (or a corrupted one) raises ``ValueError``.
+    """
+    L = int(sid_length)
+    d_eff = min(int(dense_d), L)
+    E = int(n_edges)
+    edge_offsets = np.zeros(L + 1, dtype=np.int64)
+    base = np.zeros(L, dtype=np.int64)
+    state_offsets = np.ones(L + 2, dtype=np.int64)
+    if E == 0:  # fully dense trie: leaves only, no CSR edges
+        state_offsets[d_eff + 1:] = n_states
+        return LevelBlocks(edge_offsets, base, state_offsets)
+    rp = torch.as_tensor(row_pointers)[: n_states + 1].long()
+    eg = torch.as_tensor(edges)
+    tok, dst = eg[:E, 0].long(), eg[:E, 1].long()
+
+    # state-block bounds per level from the first sparse level on: the first
+    # edge's destination opens the next level, and each block's out-degree
+    # is the size of the block it feeds
+    bounds = [1, int(dst[0])]
+    while bounds[-1] < n_states:
+        lo, hi = bounds[-2], bounds[-1]
+        if not 1 <= lo < hi <= n_states:
+            raise ValueError(
+                f"non-canonical CSR slab: level bounds {bounds} do not "
+                f"partition states [1, {n_states})")
+        n_out = int(rp[hi] - rp[lo])
+        if n_out <= 0:
+            raise ValueError(
+                "non-canonical CSR slab: empty intermediate level block")
+        bounds.append(hi + n_out)
+    if bounds[-1] != n_states or len(bounds) - 1 != L - d_eff + 1:
+        raise ValueError(
+            f"non-canonical CSR slab: inferred {len(bounds) - 1} level "
+            f"blocks over {bounds[-1]} states, expected {L - d_eff + 1} "
+            f"blocks over {n_states}")
+
+    for b in range(len(bounds) - 2):  # edge-bearing steps d_eff .. L-1
+        s = d_eff + b
+        e0, e1 = int(rp[bounds[b]]), int(rp[bounds[b + 1]])
+        edge_offsets[s] = e0
+        edge_offsets[s + 1:] = e1
+        base[s] = bounds[b + 1] - e0
+        want = torch.arange(e0, e1, device=dst.device) + int(base[s])
+        if not torch.equal(dst[e0:e1], want):
+            raise ValueError(
+                f"non-canonical CSR slab: step-{s} destinations are not "
+                f"consecutive (base {base[s]})")
+    edge_offsets[L] = E
+    for b, v in enumerate(bounds):  # bounds[b]: first state of level d_eff+b
+        state_offsets[d_eff + b] = v
+
+    # rows strictly token-ascending: the deltas are positive, and the §8
+    # tie order assumes it
+    if E > 1:
+        mark = torch.zeros(E + 1, dtype=torch.bool, device=tok.device)
+        mark[rp[:-1]] = True
+        if not bool(((tok[1:] > tok[:-1]) | mark[1:E]).all()):
+            raise ValueError(
+                "non-canonical CSR slab: row tokens are not strictly "
+                "ascending")
+    if int(tok.min()) < 0 or (vocab_size is not None
+                              and int(tok.max()) >= vocab_size):
+        raise ValueError("non-canonical CSR slab: edge tokens out of range")
+    return LevelBlocks(edge_offsets, base, state_offsets)

@@ -2,12 +2,15 @@
 multi-tenant :class:`~repro_torch.constraints.ConstraintStore`.
 
 Counterparts of ``repro.decoding.backends.StaticBackend`` and
-``StackedStaticBackend`` (without the compressed-slab branches and the
-level-free mask, which are not ported yet).  A backend masks one decode step
+``StackedStaticBackend`` (without the level-free mask, which is not ported
+yet).  A backend masks one decode step
 and reports, vocab-aligned, where each token emission leads (DESIGN.md
 §3.1), or — on candidate-compressed levels — each beam's dense-rank top-C
 ``(scores, tokens, next_states)`` (DESIGN.md §8).  The stacked backend keys
-every lookup on per-row ``constraint_ids`` (DESIGN.md §4).
+every lookup on per-row ``constraint_ids`` (DESIGN.md §4).  With a
+delta-compressed ``slab`` (DESIGN.md §11) every sparse lookup reads the
+slab's token deltas instead of the ``(token, next)`` pairs, with equal
+outputs.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.constraints.store import ConstraintStore
 from repro_torch.core import dense_mask
+from repro_torch.core.compressed_slab import CompressedSlab
 from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.core.vntk import candidate_width
 from repro_torch.kernels import ops as kernel_ops
@@ -63,10 +67,14 @@ class StaticBackend:
     ``impl`` is ``None`` (the CUDA kernels on a CUDA matrix, the plain
     versions on a CPU one) or ``"plain"`` (the plain versions on any device,
     to hold the kernels against them).  ``fused`` folds the log-softmax into
-    the sparse step.
+    the sparse step.  ``slab`` (optional) is the matrix's compressed edge
+    slab: when present every sparse step goes through the compressed
+    kernels.  ``tm.edges`` stays on the device beside it, as in the
+    reference.
     """
 
     tm: TransitionMatrix
+    slab: Optional[CompressedSlab] = None
     impl: Optional[str] = None
     fused: bool = False
     levels: Levels = "auto"
@@ -104,9 +112,17 @@ class StaticBackend:
             if step == 0:
                 return dense_mask.dense_lookup_l0(log_probs, self.tm)
             return dense_mask.dense_lookup_l1(log_probs, nodes, self.tm)
-        return kernel_ops.vntk(
-            log_probs, nodes, self.tm.row_pointers, self.tm.edges,
-            self._bmax(step), self.tm.vocab_size, impl=self.impl)
+        return self._sparse_mask(log_probs, nodes, step, fused=False)
+
+    def _sparse_mask(self, values, nodes, step, *, fused):
+        if self.slab is not None:
+            return kernel_ops.vntk_compressed(
+                values, nodes, self.tm.row_pointers, self.slab.tok_delta,
+                self.slab.base_for_step(step), self._bmax(step),
+                self.tm.vocab_size, impl=self.impl, fused_logsoftmax=fused)
+        fn = kernel_ops.vntk_fused_logsoftmax if fused else kernel_ops.vntk
+        return fn(values, nodes, self.tm.row_pointers, self.tm.edges,
+                  self._bmax(step), self.tm.vocab_size, impl=self.impl)
 
     def fused_step(self, logits, nodes, step, *, constraint_ids=None):
         """Phases 1-2 in one pass on sparse steps; dense steps normalize
@@ -116,9 +132,7 @@ class StaticBackend:
         if _dense_at(step, self.tm.dense_d, self.levels):
             lp = torch.log_softmax(logits.float(), dim=-1)
             return self.mask_step(lp, nodes, step)
-        return kernel_ops.vntk_fused_logsoftmax(
-            logits, nodes, self.tm.row_pointers, self.tm.edges,
-            self._bmax(step), self.tm.vocab_size, impl=self.impl)
+        return self._sparse_mask(logits, nodes, step, fused=True)
 
     def topk_step(self, values, nodes, step, width, *, constraint_ids=None,
                   normalized=True):
@@ -130,6 +144,12 @@ class StaticBackend:
             raise ValueError(
                 f"StaticBackend(levels={self.levels!r}) has no candidate "
                 f"row at dense step {step}; fix the policy plan")
+        if self.slab is not None:
+            return kernel_ops.vntk_compressed_topk(
+                values, nodes, self.tm.row_pointers, self.slab.tok_delta,
+                self.slab.base_for_step(step), self._bmax(step),
+                self.tm.vocab_size, width, impl=self.impl,
+                fused_logsoftmax=not normalized)
         return kernel_ops.vntk_topk(
             values, nodes, self.tm.row_pointers, self.tm.edges,
             self._bmax(step), self.tm.vocab_size, width,
@@ -141,11 +161,13 @@ class StackedStaticBackend:
     """STATIC over a stacked multi-tenant :class:`ConstraintStore`.
 
     Every lookup reads one extra leading constraint axis through the per-row
-    ``constraint_ids``, which each step requires.  ``impl``, ``fused`` and
-    ``levels`` are as for :class:`StaticBackend`.
+    ``constraint_ids``, which each step requires.  ``slab`` (the per-member
+    compressed edge slab), ``impl``, ``fused`` and ``levels`` are as for
+    :class:`StaticBackend`.
     """
 
     store: ConstraintStore
+    slab: Optional[CompressedSlab] = None
     impl: Optional[str] = None
     fused: bool = False
     levels: Levels = "auto"
@@ -197,20 +219,28 @@ class StackedStaticBackend:
                     log_probs, self.store, constraint_ids=constraint_ids)
             return dense_mask.dense_lookup_l1(
                 log_probs, nodes, self.store, constraint_ids=constraint_ids)
-        return kernel_ops.vntk(
-            log_probs, nodes, self.store.row_pointers, self.store.edges,
-            self._bmax(step), self.store.vocab_size, impl=self.impl,
-            constraint_ids=constraint_ids)
+        return self._sparse_mask(log_probs, nodes, step, constraint_ids,
+                                 fused=False)
+
+    def _sparse_mask(self, values, nodes, step, constraint_ids, *, fused):
+        if self.slab is not None:
+            return kernel_ops.vntk_compressed(
+                values, nodes, self.store.row_pointers, self.slab.tok_delta,
+                self.slab.base_for_step(step), self._bmax(step),
+                self.store.vocab_size, impl=self.impl,
+                constraint_ids=constraint_ids, fused_logsoftmax=fused)
+        fn = kernel_ops.vntk_fused_logsoftmax if fused else kernel_ops.vntk
+        return fn(values, nodes, self.store.row_pointers, self.store.edges,
+                  self._bmax(step), self.store.vocab_size, impl=self.impl,
+                  constraint_ids=constraint_ids)
 
     def fused_step(self, logits, nodes, step, *, constraint_ids=None):
         if self._dense(step, constraint_ids):
             lp = torch.log_softmax(logits.float(), dim=-1)
             return self.mask_step(lp, nodes, step,
                                   constraint_ids=constraint_ids)
-        return kernel_ops.vntk_fused_logsoftmax(
-            logits, nodes, self.store.row_pointers, self.store.edges,
-            self._bmax(step), self.store.vocab_size, impl=self.impl,
-            constraint_ids=constraint_ids)
+        return self._sparse_mask(logits, nodes, step, constraint_ids,
+                                 fused=True)
 
     def topk_step(self, values, nodes, step, width, *, constraint_ids=None,
                   normalized=True):
@@ -220,6 +250,13 @@ class StackedStaticBackend:
             raise ValueError(
                 f"StackedStaticBackend(levels={self.levels!r}) has no "
                 f"candidate row at dense step {step}; fix the policy plan")
+        if self.slab is not None:
+            return kernel_ops.vntk_compressed_topk(
+                values, nodes, self.store.row_pointers, self.slab.tok_delta,
+                self.slab.base_for_step(step), self._bmax(step),
+                self.store.vocab_size, width, impl=self.impl,
+                constraint_ids=constraint_ids,
+                fused_logsoftmax=not normalized)
         return kernel_ops.vntk_topk(
             values, nodes, self.store.row_pointers, self.store.edges,
             self._bmax(step), self.store.vocab_size, width,

@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.constraints.store import ConstraintStore
+from repro_torch.core.compressed_slab import CompressedSlab
 from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.decoding.backends import StackedStaticBackend, StaticBackend
 
@@ -118,11 +119,13 @@ class DecodePolicy:
     def describe(self) -> str:
         """Human-readable per-level plan, e.g. ``L0-1:dense-bitpack
         L2-7:vntk[auto+topk]`` (``auto``: kernel on the card, plain on
-        the CPU); stacked backends read ``stacked(K=...):...``."""
+        the CPU; ``+slab``: the compressed edge slab); stacked backends read
+        ``stacked(K=...):...``."""
         def label(b):
             kind = "dense-bitpack" if b.levels == "dense" else (
                 f"vntk[{b.impl or 'auto'}{'+fused' if b.fused else ''}"
-                f"{'+topk' if self.candidate_topk else ''}]")
+                f"{'+topk' if self.candidate_topk else ''}"
+                f"{'+slab' if b.slab is not None else ''}]")
             if isinstance(b, StackedStaticBackend):
                 return f"stacked(K={b.num_sets}):{kind}"
             return kind
@@ -140,20 +143,24 @@ class DecodePolicy:
         """A new policy with ``obj`` (matrix or store) in place of the old.
 
         Only the backends whose kind matches ``obj`` are swapped; every other
-        field is kept.
+        field is kept.  A backend with a compressed slab gets the slab of
+        ``obj``: the envelope fixes its shapes and dtype, so a swap inside
+        the envelope stays hot.
         """
         stacked = bool(getattr(obj, "is_stacked", False))
         swapped, hit = [], False
         for b in self.backends:
             if isinstance(b, StackedStaticBackend) and stacked:
-                swapped.append(dataclasses.replace(b, store=obj))
-                hit = True
+                field = "store"
             elif (isinstance(b, StaticBackend) and not stacked
                     and isinstance(obj, TransitionMatrix)):
-                swapped.append(dataclasses.replace(b, tm=obj))
-                hit = True
+                field = "tm"
             else:
                 swapped.append(b)
+                continue
+            slab = CompressedSlab.build(obj) if b.slab is not None else None
+            swapped.append(dataclasses.replace(b, **{field: obj}, slab=slab))
+            hit = True
         if not hit:
             raise TypeError(
                 f"[{self.describe()}]: no swappable backend accepts "
@@ -164,37 +171,41 @@ class DecodePolicy:
     # -- factories ---------------------------------------------------------
     @classmethod
     def static(cls, tm, *, impl: Optional[str] = None, fused: bool = False,
-               topk: bool = True) -> "DecodePolicy":
+               topk: bool = True, compressed: bool = False) -> "DecodePolicy":
         """STATIC plan: dense bit-packed lookups for levels < ``dense_d``,
         the VNTK (optionally ``fused``) for the deeper levels; ``topk`` runs
-        the sparse levels candidate-compressed (DESIGN.md §8).  A stacked
-        store gets :meth:`stacked`."""
+        the sparse levels candidate-compressed (DESIGN.md §8);
+        ``compressed`` builds the delta-compressed edge slab (DESIGN.md §11)
+        and routes every sparse lookup through it, with equal outputs.  A
+        stacked store gets :meth:`stacked`."""
         if getattr(tm, "is_stacked", False):
-            return cls.stacked(tm, impl=impl, fused=fused, topk=topk)
-        return cls._plan(StaticBackend, tm, impl, fused, topk)
+            return cls.stacked(tm, impl=impl, fused=fused, topk=topk,
+                               compressed=compressed)
+        return cls._plan(StaticBackend, tm, impl, fused, topk, compressed)
 
     @classmethod
     def stacked(cls, store: ConstraintStore, *, impl: Optional[str] = None,
-                fused: bool = False, topk: bool = True) -> "DecodePolicy":
+                fused: bool = False, topk: bool = True,
+                compressed: bool = False) -> "DecodePolicy":
         """Multi-tenant STATIC plan over a stacked ConstraintStore."""
-        return cls._plan(StackedStaticBackend, store, impl, fused, topk)
+        return cls._plan(StackedStaticBackend, store, impl, fused, topk,
+                         compressed)
 
     @classmethod
-    def _plan(cls, backend, tables, impl, fused, topk) -> "DecodePolicy":
+    def _plan(cls, backend, tables, impl, fused, topk,
+              compressed) -> "DecodePolicy":
         L, d = tables.sid_length, min(tables.dense_d, tables.sid_length)
-        if d == 0:
-            return cls(backends=(backend(tables, impl=impl, fused=fused,
-                                         levels="sparse"),),
-                       plan=(0,) * L, candidate_topk=topk)
-        if d >= L:
+        if d >= L:  # fully dense band: nothing to compress
             return cls(backends=(backend(tables, levels="dense"),),
                        plan=(0,) * L, candidate_topk=topk)
-        return cls(
-            backends=(backend(tables, levels="dense"),
-                      backend(tables, impl=impl, fused=fused,
-                              levels="sparse")),
-            plan=tuple(0 if s < d else 1 for s in range(L)),
-            candidate_topk=topk)
+        sparse = backend(tables, slab=(CompressedSlab.build(tables)
+                                       if compressed else None),
+                         impl=impl, fused=fused, levels="sparse")
+        if d == 0:
+            return cls(backends=(sparse,), plan=(0,) * L, candidate_topk=topk)
+        return cls(backends=(backend(tables, levels="dense"), sparse),
+                   plan=tuple(0 if s < d else 1 for s in range(L)),
+                   candidate_topk=topk)
 
 
 def as_policy(obj) -> DecodePolicy:

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 from repro_torch.kernels import vntk as _k
 
-__all__ = ["vntk", "vntk_fused_logsoftmax", "vntk_topk"]
+__all__ = ["vntk", "vntk_fused_logsoftmax", "vntk_topk", "vntk_compressed",
+           "vntk_compressed_topk"]
 
 IMPLS = (None, "plain")
 
@@ -26,25 +27,22 @@ def _use_kernel(t, impl) -> bool:
     raise ValueError(f"no VNTK implementation for device {t.device}")
 
 
-def _flat_ids(constraint_ids, batch_shape):
-    """Per-row ids broadcast over the rows and flattened like ``nodes``."""
-    return constraint_ids.expand(batch_shape).reshape(-1)
-
-
-def _mask(values, nodes, row_pointers, edges, bmax, vocab, fused, impl,
-          constraint_ids):
+def _call(name: str, values, nodes, tables, bmax: int, vocab: int, width,
+          fused: bool, impl, constraint_ids):
+    """Run ``vntk[_stacked]_<name>`` (the kernel or its plain version) on
+    the flattened rows; outputs come back shaped like ``nodes`` plus
+    ``(vocab,)`` (mask) or ``(width,)`` (topk)."""
     batch_shape = tuple(nodes.shape)
-    flat_v, flat_n = values.reshape(-1, vocab), nodes.reshape(-1)
-    kernel = _use_kernel(values, impl)
-    if constraint_ids is None:
-        fn = _k.vntk_mask_cuda if kernel else _k.vntk_mask_plain
-        lp, nxt = fn(flat_v, flat_n, row_pointers, edges, bmax, vocab, fused)
-    else:
-        fn = _k.vntk_stacked_mask_cuda if kernel else _k.vntk_stacked_mask_plain
-        lp, nxt = fn(flat_v, flat_n, _flat_ids(constraint_ids, batch_shape),
-                     row_pointers, edges, bmax, vocab, fused)
-    return (lp.reshape(batch_shape + (vocab,)),
-            nxt.reshape(batch_shape + (vocab,)))
+    head = [values.reshape(-1, vocab), nodes.reshape(-1)]
+    stacked = constraint_ids is not None
+    if stacked:  # per-row ids broadcast over the rows like ``nodes``
+        head.append(constraint_ids.expand(batch_shape).reshape(-1))
+    kind = "cuda" if _use_kernel(values, impl) else "plain"
+    fn = getattr(_k, f"vntk{'_stacked' if stacked else ''}_{name}_{kind}")
+    out = fn(*head, *tables, bmax, vocab,
+             *(() if width is None else (width,)), fused)
+    last = vocab if width is None else width
+    return tuple(o.reshape(batch_shape + (last,)) for o in out)
 
 
 def vntk(log_probs, nodes, row_pointers, edges, bmax: int, vocab: int,
@@ -55,15 +53,15 @@ def vntk(log_probs, nodes, row_pointers, edges, bmax: int, vocab: int,
     a leading constraint axis — (K, S+1) / (K, E, 2) — and each row is masked
     by its own set (DESIGN.md §4).  ``None`` keeps the single-matrix path.
     """
-    return _mask(log_probs, nodes, row_pointers, edges, bmax, vocab, False,
-                 impl, constraint_ids)
+    return _call("mask", log_probs, nodes, (row_pointers, edges), bmax, vocab,
+                 None, False, impl, constraint_ids)
 
 
 def vntk_fused_logsoftmax(logits, nodes, row_pointers, edges, bmax: int,
                           vocab: int, impl=None, constraint_ids=None):
     """Fused LogSoftmax + VNTK masking (one pass over the logits)."""
-    return _mask(logits, nodes, row_pointers, edges, bmax, vocab, True, impl,
-                 constraint_ids)
+    return _call("mask", logits, nodes, (row_pointers, edges), bmax, vocab,
+                 None, True, impl, constraint_ids)
 
 
 def vntk_topk(values, nodes, row_pointers, edges, bmax: int, vocab: int,
@@ -75,17 +73,31 @@ def vntk_topk(values, nodes, row_pointers, edges, bmax: int, vocab: int,
     ``values`` are log-probs, or raw logits with ``fused_logsoftmax``.  With
     ``constraint_ids`` the tables carry the stacked leading constraint axis.
     """
-    batch_shape = tuple(nodes.shape)
-    flat_v, flat_n = values.reshape(-1, vocab), nodes.reshape(-1)
-    kernel = _use_kernel(values, impl)
-    if constraint_ids is None:
-        fn = _k.vntk_topk_cuda if kernel else _k.vntk_topk_plain
-        sc, tok, nxt = fn(flat_v, flat_n, row_pointers, edges, bmax, vocab,
-                          width, fused_logsoftmax)
-    else:
-        fn = _k.vntk_stacked_topk_cuda if kernel else _k.vntk_stacked_topk_plain
-        sc, tok, nxt = fn(flat_v, flat_n,
-                          _flat_ids(constraint_ids, batch_shape), row_pointers,
-                          edges, bmax, vocab, width, fused_logsoftmax)
-    shp = batch_shape + (width,)
-    return sc.reshape(shp), tok.reshape(shp), nxt.reshape(shp)
+    return _call("topk", values, nodes, (row_pointers, edges), bmax, vocab,
+                 width, fused_logsoftmax, impl, constraint_ids)
+
+
+def vntk_compressed(values, nodes, row_pointers, tok_delta, base, bmax: int,
+                    vocab: int, impl=None, constraint_ids=None,
+                    fused_logsoftmax: bool = False):
+    """VNTK over a compressed slab (DESIGN.md §11): vocab-aligned outputs.
+
+    ``tok_delta``/``base`` come from a
+    :class:`~repro_torch.core.compressed_slab.CompressedSlab`: ``base`` is
+    the step's ``level_base`` entry, a scalar, or per member ``(K,)`` with
+    ``constraint_ids``.  Equal to :func:`vntk` /
+    :func:`vntk_fused_logsoftmax` on the same trie.
+    """
+    return _call("compressed_mask", values, nodes,
+                 (row_pointers, tok_delta, base), bmax, vocab, None,
+                 fused_logsoftmax, impl, constraint_ids)
+
+
+def vntk_compressed_topk(values, nodes, row_pointers, tok_delta, base,
+                         bmax: int, vocab: int, width: int, impl=None,
+                         constraint_ids=None, fused_logsoftmax: bool = False):
+    """Candidate-compressed VNTK over a compressed slab (§8 x §11): per-beam
+    dense-rank top-``width`` ``(scores, tokens, next_states)``."""
+    return _call("compressed_topk", values, nodes,
+                 (row_pointers, tok_delta, base), bmax, vocab, width,
+                 fused_logsoftmax, impl, constraint_ids)

@@ -1,21 +1,27 @@
 """CUDA VNTK kernels: ctypes wrappers and their plain PyTorch versions.
 
 Two kernels in ``csrc/vntk.cu``, each templated on ``FUSED`` (log-softmax
-of raw logits inside the kernel) and ``STACKED`` (a multi-tenant store read
-through per-row constraint ids), carry eight functions of the TPU package:
+of raw logits inside the kernel), ``STACKED`` (a multi-tenant store read
+through per-row constraint ids) and the edge source (the raw ``(token,
+next)`` pairs, or a delta-compressed slab of int16/int32 token deltas and a
+next-state base, DESIGN.md §11), carry sixteen functions of the TPU package:
 
-====================================  ==========================================
-wrapper (fused)                       replaces (``src/repro/kernels/vntk.py``)
-====================================  ==========================================
-``vntk_topk_cuda`` (False)            ``vntk_topk_pallas``
-``vntk_topk_cuda`` (True)             ``vntk_topk_pallas``, fused
-``vntk_mask_cuda`` (False)            ``vntk_pallas``
-``vntk_mask_cuda`` (True)             ``vntk_fused_logsoftmax_pallas``
-``vntk_stacked_topk_cuda`` (False)    ``vntk_stacked_topk_pallas``
-``vntk_stacked_topk_cuda`` (True)     ``vntk_stacked_topk_pallas``, fused
-``vntk_stacked_mask_cuda`` (False)    ``vntk_stacked_pallas``
-``vntk_stacked_mask_cuda`` (True)     ``vntk_stacked_fused_logsoftmax_pallas``
-====================================  ==========================================
+===============================================  ==========================================
+wrapper (fused)                                  replaces (``src/repro/kernels/vntk.py``)
+===============================================  ==========================================
+``vntk_topk_cuda`` (False)                       ``vntk_topk_pallas``
+``vntk_topk_cuda`` (True)                        ``vntk_topk_pallas``, fused
+``vntk_mask_cuda`` (False)                       ``vntk_pallas``
+``vntk_mask_cuda`` (True)                        ``vntk_fused_logsoftmax_pallas``
+``vntk_stacked_topk_cuda`` (False)               ``vntk_stacked_topk_pallas``
+``vntk_stacked_topk_cuda`` (True)                ``vntk_stacked_topk_pallas``, fused
+``vntk_stacked_mask_cuda`` (False)               ``vntk_stacked_pallas``
+``vntk_stacked_mask_cuda`` (True)                ``vntk_stacked_fused_logsoftmax_pallas``
+``vntk_compressed_topk_cuda`` (both)             ``vntk_compressed_topk_pallas``
+``vntk_compressed_mask_cuda`` (both)             ``vntk_compressed_pallas``
+``vntk_stacked_compressed_topk_cuda`` (both)     ``vntk_stacked_compressed_topk_pallas``
+``vntk_stacked_compressed_mask_cuda`` (both)     ``vntk_stacked_compressed_pallas``
+===============================================  ==========================================
 
 A wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, raises on what the kernel does not take, and launches on the
@@ -32,7 +38,11 @@ import functools
 import torch
 
 from repro_torch.core.vntk import (
+    vntk_compressed_reference,
+    vntk_compressed_topk_reference,
     vntk_reference_scatter,
+    vntk_stacked_compressed_reference,
+    vntk_stacked_compressed_topk_reference,
     vntk_stacked_reference_scatter,
     vntk_stacked_topk_reference,
     vntk_topk_reference,
@@ -42,12 +52,17 @@ from repro_torch.kernels import build
 __all__ = ["LAUNCHES", "counter_name", "reset_launches", "vntk_topk_cuda",
            "vntk_mask_cuda", "vntk_topk_plain", "vntk_mask_plain",
            "vntk_stacked_topk_cuda", "vntk_stacked_mask_cuda",
-           "vntk_stacked_topk_plain", "vntk_stacked_mask_plain"]
+           "vntk_stacked_topk_plain", "vntk_stacked_mask_plain",
+           "vntk_compressed_topk_cuda", "vntk_compressed_mask_cuda",
+           "vntk_stacked_compressed_topk_cuda",
+           "vntk_stacked_compressed_mask_cuda", "vntk_compressed_topk_plain",
+           "vntk_compressed_mask_plain", "vntk_stacked_compressed_topk_plain",
+           "vntk_stacked_compressed_mask_plain"]
 
-LAUNCHES = {"vntk_topk": 0, "vntk_topk_fused": 0, "vntk_mask": 0,
-            "vntk_mask_fused": 0, "vntk_stacked_topk": 0,
-            "vntk_stacked_topk_fused": 0, "vntk_stacked_mask": 0,
-            "vntk_stacked_mask_fused": 0}
+KERNELS = ("vntk_topk", "vntk_mask", "vntk_stacked_topk", "vntk_stacked_mask",
+           "vntk_compressed_topk", "vntk_compressed_mask",
+           "vntk_stacked_compressed_topk", "vntk_stacked_compressed_mask")
+LAUNCHES = {f"{k}{suffix}": 0 for k in KERNELS for suffix in ("", "_fused")}
 
 # Shared memory a block may use on Hopper (the topk keys live there).
 _MAX_SMEM = 227 * 1024
@@ -74,26 +89,38 @@ def _lib() -> ctypes.CDLL:
         p, i64, p, p, i, p, i64, p, i64, i, i, i, i, i, p, p, p, p]
     lib.vntk_stacked_mask_launch.argtypes = [
         p, i64, p, p, i, p, i64, p, i64, i, i, i, i, p, p, p]
-    for fn in (lib.vntk_topk_launch, lib.vntk_mask_launch,
-               lib.vntk_stacked_topk_launch, lib.vntk_stacked_mask_launch):
-        fn.restype = ctypes.c_int
+    lib.vntk_compressed_topk_launch.argtypes = [
+        p, i64, p, p, p, i, p, i, i, i, i, i, p, p, p, p]
+    lib.vntk_compressed_mask_launch.argtypes = [
+        p, i64, p, p, p, i, p, i, i, i, i, p, p, p]
+    lib.vntk_stacked_compressed_topk_launch.argtypes = [
+        p, i64, p, p, i, p, i64, p, i64, i, p, i64, i, i, i, i, i, p, p, p, p]
+    lib.vntk_stacked_compressed_mask_launch.argtypes = [
+        p, i64, p, p, i, p, i64, p, i64, i, p, i64, i, i, i, i, p, p, p]
+    for kernel in KERNELS:
+        getattr(lib, f"{kernel}_launch").restype = ctypes.c_int
     lib.vntk_topk_smem_bytes.argtypes = [i, i]
     lib.vntk_topk_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
 def _check_inputs(values, nodes, row_pointers, edges, bmax: int, vocab: int,
-                  cids=None):
+                  cids=None, base=None):
     """Validate the kernel's inputs; returns the row count ``nb``.
 
     With ``cids`` the tables are a stacked store: ``row_pointers`` (K, S+1)
     and ``edges`` (K, E, 2) with equal K, and ``cids`` a contiguous (nb,)
-    int32 tensor."""
+    int32 tensor.  With ``base`` ``edges`` is a compressed slab's
+    ``tok_delta`` ((E+pad,) or (K, E+pad), int16 or int32) and ``base`` the
+    step's int32 next-state base: one value, or (K,) when stacked."""
     dev = values.device
     tensors = (("values", values), ("nodes", nodes),
-               ("row_pointers", row_pointers), ("edges", edges))
+               ("row_pointers", row_pointers),
+               ("edges" if base is None else "tok_delta", edges))
     if cids is not None:
         tensors += (("constraint_ids", cids),)
+    if base is not None:
+        tensors += (("base", base),)
     for name, t in tensors:
         if t.device.type != "cuda" or t.device != dev:
             raise ValueError(f"{name} must be a CUDA tensor on {dev}, got "
@@ -116,12 +143,29 @@ def _check_inputs(values, nodes, row_pointers, edges, bmax: int, vocab: int,
             or not row_pointers.is_contiguous()):
         raise ValueError(f"row_pointers must be a contiguous {1 + lead}-D "
                          "int32 tensor")
-    if (edges.dtype != torch.int32 or edges.dim() != 2 + lead
-            or edges.shape[-1] != 2 or not edges.is_contiguous()
-            or edges.data_ptr() % 8):
-        shape = "(K, E, 2)" if lead else "(E, 2)"
-        raise ValueError(f"edges must be a contiguous, 8-byte aligned {shape} "
-                         "int32 tensor")
+    if base is None:
+        if (edges.dtype != torch.int32 or edges.dim() != 2 + lead
+                or edges.shape[-1] != 2 or not edges.is_contiguous()
+                or edges.data_ptr() % 8):
+            shape = "(K, E, 2)" if lead else "(E, 2)"
+            raise ValueError(f"edges must be a contiguous, 8-byte aligned "
+                             f"{shape} int32 tensor")
+        if edges.shape[-2] < bmax:
+            raise ValueError("edges tensor smaller than one speculative burst")
+    else:
+        if (edges.dtype not in (torch.int16, torch.int32)
+                or edges.dim() != 1 + lead or not edges.is_contiguous()):
+            shape = "(K, E+pad)" if lead else "(E+pad,)"
+            raise ValueError(f"tok_delta must be a contiguous {shape} int16 "
+                             f"or int32 tensor, got {edges.dtype} "
+                             f"{tuple(edges.shape)}")
+        if edges.shape[-1] < bmax:
+            raise ValueError("token slab smaller than one speculative burst")
+        if base.dtype != torch.int32 or (
+                base.shape != (edges.shape[0],) if lead else base.numel() != 1):
+            want = f"({edges.shape[0]},)" if lead else "one-element"
+            raise ValueError(f"base must be a {want} int32 tensor, got "
+                             f"{base.dtype} {tuple(base.shape)}")
     if cids is not None:
         if (cids.dtype != torch.int32 or cids.shape != (nb,)
                 or not cids.is_contiguous()):
@@ -133,8 +177,6 @@ def _check_inputs(values, nodes, row_pointers, edges, bmax: int, vocab: int,
                              f"edges ({edges.shape[0]} sets) disagree on K")
     if bmax < 1:
         raise ValueError(f"bmax must be >= 1, got {bmax}")
-    if edges.shape[-2] < bmax:
-        raise ValueError("edges tensor smaller than one speculative burst")
     return nb
 
 
@@ -164,6 +206,40 @@ def _launched(err: int, kernel: str, fused: bool) -> None:
     LAUNCHES[counter_name(kernel, fused)] += 1
 
 
+def _launch(kernel: str, fused: bool, values, nodes, cids, row_pointers,
+            edges, base, bmax: int, vocab: int, width=None):
+    """Check, allocate and launch one function: ``width`` ``None`` is the
+    vocab-aligned mask, else the candidate topk; ``cids`` selects the
+    stacked kernels, ``base`` the compressed ones (``edges`` is then the
+    slab's ``tok_delta``)."""
+    bmax, vocab = int(bmax), int(vocab)
+    nb = _check_inputs(values, nodes, row_pointers, edges, bmax, vocab, cids,
+                       base)
+    lib = _lib()
+    topk = width is not None
+    if topk:
+        width = int(width)
+        _check_width(lib, bmax, width, vocab)
+    outs = _outputs(values, nb, width if topk else vocab, topk=topk)
+    if nb == 0:
+        return outs
+    slab = [] if base is None else [edges.element_size(), base.data_ptr()]
+    if cids is None:
+        tables = [row_pointers.data_ptr(), edges.data_ptr(), *slab]
+    else:
+        tables = [cids.data_ptr(), edges.shape[0], row_pointers.data_ptr(),
+                  row_pointers.shape[1], edges.data_ptr(), edges.shape[1],
+                  *slab, *([] if base is None else [base.stride(0)])]
+    shape = [nb, vocab, bmax] + ([width] if topk else [])
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, f"{kernel}_launch")(
+            values.data_ptr(), values.stride(0), nodes.data_ptr(), *tables,
+            *shape, int(fused), *(o.data_ptr() for o in outs), stream)
+    _launched(err, kernel, fused)
+    return outs
+
+
 def vntk_topk_cuda(values, nodes, row_pointers, edges, bmax: int, vocab: int,
                    width: int, fused: bool = False):
     """Per-beam dense-rank top-``width`` (DESIGN.md §8) on the card.
@@ -172,21 +248,8 @@ def vntk_topk_cuda(values, nodes, row_pointers, edges, bmax: int, vocab: int,
     ``fused``.  Returns ``(scores f32, tokens i32, next_states i32)``, each
     ``(nb, width)``.
     """
-    bmax, vocab, width = int(bmax), int(vocab), int(width)
-    nb = _check_inputs(values, nodes, row_pointers, edges, bmax, vocab)
-    lib = _lib()
-    _check_width(lib, bmax, width, vocab)
-    sc, tok, nxt = _outputs(values, nb, width)
-    if nb == 0:
-        return sc, tok, nxt
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vntk_topk_launch(
-            values.data_ptr(), values.stride(0), nodes.data_ptr(),
-            row_pointers.data_ptr(), edges.data_ptr(), nb, vocab, bmax, width,
-            int(fused), sc.data_ptr(), tok.data_ptr(), nxt.data_ptr(), stream)
-    _launched(err, "vntk_topk", fused)
-    return sc, tok, nxt
+    return _launch("vntk_topk", fused, values, nodes, None, row_pointers,
+                   edges, None, bmax, vocab, width)
 
 
 def vntk_stacked_topk_cuda(values, nodes, cids, row_pointers, edges,
@@ -195,65 +258,62 @@ def vntk_stacked_topk_cuda(values, nodes, cids, row_pointers, edges,
     """:func:`vntk_topk_cuda` over a stacked store: row ``r`` reads member
     ``cids[r]`` (clamped into ``[0, K)``) of ``row_pointers`` (K, S+1) and
     ``edges`` (K, E, 2)."""
-    bmax, vocab, width = int(bmax), int(vocab), int(width)
-    nb = _check_inputs(values, nodes, row_pointers, edges, bmax, vocab, cids)
-    lib = _lib()
-    _check_width(lib, bmax, width, vocab)
-    sc, tok, nxt = _outputs(values, nb, width)
-    if nb == 0:
-        return sc, tok, nxt
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vntk_stacked_topk_launch(
-            values.data_ptr(), values.stride(0), nodes.data_ptr(),
-            cids.data_ptr(), edges.shape[0], row_pointers.data_ptr(),
-            row_pointers.shape[1], edges.data_ptr(), edges.shape[1], nb,
-            vocab, bmax, width, int(fused), sc.data_ptr(), tok.data_ptr(),
-            nxt.data_ptr(), stream)
-    _launched(err, "vntk_stacked_topk", fused)
-    return sc, tok, nxt
+    return _launch("vntk_stacked_topk", fused, values, nodes, cids,
+                   row_pointers, edges, None, bmax, vocab, width)
 
 
 def vntk_mask_cuda(values, nodes, row_pointers, edges, bmax: int, vocab: int,
                    fused: bool = False):
     """Alg. 2, vocab-aligned, on the card: ``(masked_lp f32, next i32)``,
     each ``(nb, V)`` (``NEG_INF`` / 0 off the trie)."""
-    bmax, vocab = int(bmax), int(vocab)
-    nb = _check_inputs(values, nodes, row_pointers, edges, bmax, vocab)
-    lib = _lib()
-    out_lp, out_next = _outputs(values, nb, vocab, topk=False)
-    if nb == 0:
-        return out_lp, out_next
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vntk_mask_launch(
-            values.data_ptr(), values.stride(0), nodes.data_ptr(),
-            row_pointers.data_ptr(), edges.data_ptr(), nb, vocab, bmax,
-            int(fused), out_lp.data_ptr(), out_next.data_ptr(), stream)
-    _launched(err, "vntk_mask", fused)
-    return out_lp, out_next
+    return _launch("vntk_mask", fused, values, nodes, None, row_pointers,
+                   edges, None, bmax, vocab)
 
 
 def vntk_stacked_mask_cuda(values, nodes, cids, row_pointers, edges,
                            bmax: int, vocab: int, fused: bool = False):
     """:func:`vntk_mask_cuda` over a stacked store (see
     :func:`vntk_stacked_topk_cuda`)."""
-    bmax, vocab = int(bmax), int(vocab)
-    nb = _check_inputs(values, nodes, row_pointers, edges, bmax, vocab, cids)
-    lib = _lib()
-    out_lp, out_next = _outputs(values, nb, vocab, topk=False)
-    if nb == 0:
-        return out_lp, out_next
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.vntk_stacked_mask_launch(
-            values.data_ptr(), values.stride(0), nodes.data_ptr(),
-            cids.data_ptr(), edges.shape[0], row_pointers.data_ptr(),
-            row_pointers.shape[1], edges.data_ptr(), edges.shape[1], nb,
-            vocab, bmax, int(fused), out_lp.data_ptr(), out_next.data_ptr(),
-            stream)
-    _launched(err, "vntk_stacked_mask", fused)
-    return out_lp, out_next
+    return _launch("vntk_stacked_mask", fused, values, nodes, cids,
+                   row_pointers, edges, None, bmax, vocab)
+
+
+def vntk_compressed_topk_cuda(values, nodes, row_pointers, tok_delta, base,
+                              bmax: int, vocab: int, width: int,
+                              fused: bool = False):
+    """:func:`vntk_topk_cuda` over a compressed slab (DESIGN.md §11):
+    ``tok_delta`` (E+pad,) int16/int32 token deltas and ``base`` the step's
+    one-element int32 next-state base (``CompressedSlab.base_for_step``)."""
+    return _launch("vntk_compressed_topk", fused, values, nodes, None,
+                   row_pointers, tok_delta, base, bmax, vocab, width)
+
+
+def vntk_compressed_mask_cuda(values, nodes, row_pointers, tok_delta, base,
+                              bmax: int, vocab: int, fused: bool = False):
+    """:func:`vntk_mask_cuda` over a compressed slab."""
+    return _launch("vntk_compressed_mask", fused, values, nodes, None,
+                   row_pointers, tok_delta, base, bmax, vocab)
+
+
+def vntk_stacked_compressed_topk_cuda(values, nodes, cids, row_pointers,
+                                      tok_delta, base_k, bmax: int,
+                                      vocab: int, width: int,
+                                      fused: bool = False):
+    """:func:`vntk_compressed_topk_cuda` over a stacked store's slab: row
+    ``r`` reads member ``k = cids[r]`` (clamped into ``[0, K)``) of
+    ``row_pointers`` (K, S+1) and ``tok_delta`` (K, E+pad), with base
+    ``base_k[k]`` of the (K,) int32 bases (any stride)."""
+    return _launch("vntk_stacked_compressed_topk", fused, values, nodes, cids,
+                   row_pointers, tok_delta, base_k, bmax, vocab, width)
+
+
+def vntk_stacked_compressed_mask_cuda(values, nodes, cids, row_pointers,
+                                      tok_delta, base_k, bmax: int,
+                                      vocab: int, fused: bool = False):
+    """:func:`vntk_compressed_mask_cuda` over a stacked store's slab (see
+    :func:`vntk_stacked_compressed_topk_cuda`)."""
+    return _launch("vntk_stacked_compressed_mask", fused, values, nodes, cids,
+                   row_pointers, tok_delta, base_k, bmax, vocab)
 
 
 def _normalize(values, fused: bool):
@@ -288,3 +348,38 @@ def vntk_stacked_mask_plain(values, nodes, cids, row_pointers, edges,
     return vntk_stacked_reference_scatter(_normalize(values, fused), nodes,
                                           cids, row_pointers, edges, bmax,
                                           vocab)
+
+
+def vntk_compressed_topk_plain(values, nodes, row_pointers, tok_delta, base,
+                               bmax: int, vocab: int, width: int,
+                               fused: bool = False):
+    """Plain PyTorch version of :func:`vntk_compressed_topk_cuda`."""
+    return vntk_compressed_topk_reference(_normalize(values, fused), nodes,
+                                          row_pointers, tok_delta, base, bmax,
+                                          vocab, width)
+
+
+def vntk_compressed_mask_plain(values, nodes, row_pointers, tok_delta, base,
+                               bmax: int, vocab: int, fused: bool = False):
+    """Plain PyTorch version of :func:`vntk_compressed_mask_cuda`."""
+    return vntk_compressed_reference(_normalize(values, fused), nodes,
+                                     row_pointers, tok_delta, base, bmax, vocab)
+
+
+def vntk_stacked_compressed_topk_plain(values, nodes, cids, row_pointers,
+                                       tok_delta, base_k, bmax: int,
+                                       vocab: int, width: int,
+                                       fused: bool = False):
+    """Plain PyTorch version of :func:`vntk_stacked_compressed_topk_cuda`."""
+    return vntk_stacked_compressed_topk_reference(
+        _normalize(values, fused), nodes, cids, row_pointers, tok_delta,
+        base_k, bmax, vocab, width)
+
+
+def vntk_stacked_compressed_mask_plain(values, nodes, cids, row_pointers,
+                                       tok_delta, base_k, bmax: int,
+                                       vocab: int, fused: bool = False):
+    """Plain PyTorch version of :func:`vntk_stacked_compressed_mask_cuda`."""
+    return vntk_stacked_compressed_reference(
+        _normalize(values, fused), nodes, cids, row_pointers, tok_delta,
+        base_k, bmax, vocab)
