@@ -1,7 +1,8 @@
-"""Transformer config dataclasses — a copy of ``repro.configs.base``.
+"""Transformer and recsys config dataclasses — a copy of ``repro.configs.base``.
 
 Field for field the same as the reference, so a config built for one package
-builds the other (``TransformerConfig(**dataclasses.asdict(cfg))``).  The
+builds the other (``TransformerConfig(**dataclasses.asdict(cfg))``,
+``RecsysConfig(**dataclasses.asdict(cfg))``).  The
 port's transformer implements the GQA path; it raises on the fields of the
 paths still to be ported (MLA, MoE, sliding window, deferred cache writes).
 Fields that only steer JAX sharding or XLA lowering are kept for that
@@ -77,3 +78,44 @@ class TransformerConfig:
         hd = self.resolved_head_dim()
         attn = D * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * D
         return emb + L * (attn + 3 * D * self.d_ff)
+
+
+# --------------------------------------------------------------------------
+# RecSys family
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    model: str  # "wide_deep" | "mind" | "dlrm" | "fm"
+    n_dense: int = 0
+    n_sparse: int = 26
+    embed_dim: int = 32
+    vocab_sizes: tuple = ()  # per-sparse-feature rows
+    bot_mlp: tuple = ()
+    top_mlp: tuple = ()
+    mlp: tuple = ()
+    interaction: str = "concat"
+    # MIND-specific
+    n_interests: int = 4
+    capsule_iters: int = 3
+    hist_len: int = 50
+    multi_hot: int = 1  # indices per sparse feature (bag arity K)
+    dtype: str = "float32"
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysShape:
+    name: str
+    kind: str  # "train" | "serve" | "retrieval"
+    batch: int
+    n_candidates: int = 0
+
+
+RECSYS_SHAPES = (
+    RecsysShape("train_batch", "train", 65_536),
+    RecsysShape("serve_p99", "serve", 512),
+    RecsysShape("serve_bulk", "serve", 262_144),
+    RecsysShape("retrieval_cand", "retrieval", 1, n_candidates=1_000_000),
+)

@@ -10,14 +10,15 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import TransformerConfig
+from repro_torch.configs.base import RecsysConfig, TransformerConfig
 from repro_torch.constraints.store import _LEAF_FIELDS, ConstraintStore
 from repro_torch.core.compressed_slab import CompressedSlab
 from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.models.transformer import check_supported, torch_dtype
 
-__all__ = ["params_from_jax", "transition_matrix_from_numpy",
-           "store_from_numpy", "slab_from_numpy"]
+__all__ = ["params_from_jax", "recsys_params_from_jax",
+           "transition_matrix_from_numpy", "store_from_numpy",
+           "slab_from_numpy"]
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -47,6 +48,26 @@ def params_from_jax(params_np, cfg: TransformerConfig, device=None):
     if "unemb" in params_np:
         out["unemb"] = conv(params_np["unemb"])
     return out
+
+
+def recsys_params_from_jax(params_np, cfg: RecsysConfig, device=None):
+    """The reference's recsys parameter pytree (numpy leaves) as the port's
+    dict: ``table_i``/``wide_i`` tables, the ``deep``/``bot``/``top`` MLPs
+    (``l{i}`` -> ``{w, b}``), ``bias``, ``bilinear`` and ``routing_init``,
+    each leaf in its own dtype (the tables in the config's)."""
+    dev = resolve_device(device)
+    if "table_0" not in params_np:
+        raise ValueError(f"{cfg.name}: not a recsys parameter tree")
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        a = np.asarray(tree)
+        if a.dtype.name == "bfloat16":
+            return _tensor(a, torch.bfloat16, dev)
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    return conv(params_np)
 
 
 def transition_matrix_from_numpy(tm, device=None) -> TransitionMatrix:

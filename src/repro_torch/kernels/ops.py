@@ -1,4 +1,5 @@
-"""Dispatch of the VNTK step to the CUDA kernels or their plain versions.
+"""Dispatch of the VNTK step and the embedding bag to the CUDA kernels or
+their plain versions.
 
 ``impl``:
   * ``None``    — by the tensor's device: a CUDA tensor launches the kernel
@@ -9,10 +10,11 @@
 """
 from __future__ import annotations
 
+from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import vntk as _k
 
 __all__ = ["vntk", "vntk_fused_logsoftmax", "vntk_topk", "vntk_compressed",
-           "vntk_compressed_topk"]
+           "vntk_compressed_topk", "embedding_bag"]
 
 IMPLS = (None, "plain")
 
@@ -24,7 +26,7 @@ def _use_kernel(t, impl) -> bool:
         return False
     if t.device.type == "cuda":
         return True
-    raise ValueError(f"no VNTK implementation for device {t.device}")
+    raise ValueError(f"no kernel implementation for device {t.device}")
 
 
 def _call(name: str, values, nodes, tables, bmax: int, vocab: int, width,
@@ -101,3 +103,12 @@ def vntk_compressed_topk(values, nodes, row_pointers, tok_delta, base,
     return _call("compressed_topk", values, nodes,
                  (row_pointers, tok_delta, base), bmax, vocab, width,
                  fused_logsoftmax, impl, constraint_ids)
+
+
+def embedding_bag(table, indices, mode: str = "sum", impl=None):
+    """Fixed-arity EmbeddingBag: (B, K) int32 ids into a (R+1, D) table ->
+    (B, D) sums or means over K, accumulated in float32 (ids clamped into
+    ``[0, R]``; row R is the zero sentinel)."""
+    fn = (_bag.embedding_bag_cuda if _use_kernel(table, impl)
+          else _bag.embedding_bag_plain)
+    return fn(table, indices, mode)

@@ -1,13 +1,56 @@
-"""Foundational layers: RMSNorm, RoPE, SwiGLU (``repro.models.layers``).
+"""Foundational layers: initializers, RMSNorm, RoPE, SwiGLU, MLPs
+(``repro.models.layers``).
 
-Parameters are plain dicts of tensors, as in the reference.
+Parameters are plain dicts of tensors, as in the reference.  Initializers
+take an explicit ``torch.Generator`` and device (the numbers differ from
+``jax.random``'s; the distributions are the same).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["rms_norm", "swiglu", "rope_frequencies", "apply_rope"]
+__all__ = ["dense_init", "dense", "mlp_init", "mlp", "rms_norm", "swiglu",
+           "rope_frequencies", "apply_rope"]
+
+
+def _he(gen: torch.Generator, shape, dtype, device, fan_in=None):
+    """He-normal: normal * sqrt(2 / fan_in), fan_in the leading dim."""
+    fan_in = fan_in or shape[0]
+    w = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    return (w * (2.0 / fan_in) ** 0.5).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.bfloat16, bias: bool = False, device=None):
+    p = {"w": _he(gen, (d_in, d_out), dtype, device)}
+    if bias:
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=device)
+    return p
+
+
+def dense(p, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+def mlp_init(gen: torch.Generator, dims, dtype=torch.bfloat16,
+             bias: bool = True, device=None):
+    """dims = (d_in, h1, ..., d_out); ReLU between layers."""
+    return {f"l{i}": dense_init(gen, dims[i], dims[i + 1], dtype, bias=bias,
+                                device=device)
+            for i in range(len(dims) - 1)}
+
+
+def mlp(p, x: torch.Tensor, act=F.relu) -> torch.Tensor:
+    n = len(p)
+    for i in range(n):
+        x = dense(p[f"l{i}"], x)
+        if i < n - 1:
+            x = act(x)
+    return x
 
 
 def rms_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
