@@ -70,35 +70,48 @@ Phases (any failure raises and the script exits non-zero):
               compliant with the new set.
 6. bag      — the retrieval phases' tensors released, the EmbeddingBag
               kernel (``csrc/embedding_bag.cu``) against its plain version
-              on the card: the reference's sweep ((B, K, D) in (8, 1, 32),
-              (16, 4, 128), (5, 7, 64); float32 and bfloat16; sum and mean;
-              R = 200), ids out of range (negative and past R, which the
-              kernel clamps) with K = 7 means, the recsys path's shapes
-              (K = 1; D = 32 and 1 on a 10M-row table, D = 10 on a 1M-row
-              one; B = 512 and 262,144), and an int64 stress: DLRM-MLPerf's
-              largest table (39,979,776 x 128 float32, 20.5 GB, freed after)
-              read in its last rows, past 2^31 elements.  K = 1 must be
-              bit-equal; K > 1 within rtol/atol 1e-6 (float32) or one bf16
-              ulp.  The kernel, the plain version and ``F.embedding_bag``
-              (the library yardstick, used nowhere in the port) are timed
-              at the path's shapes as in phase 3.
+              on the card.  Single-table entry: the reference's sweep ((B,
+              K, D) in (8, 1, 32), (16, 4, 128), (5, 7, 64); float32 and
+              bfloat16; sum and mean; R = 200), ids out of range (negative
+              and past R, which the kernel clamps) with K = 7 means, and the
+              recsys path's per-table shapes (K = 1; D = 32 and 1 on a
+              10M-row table, D = 10 on a 1M-row one; B = 512 and 262,144).
+              Grouped entry (one launch per 64 tables of one width): F = 70
+              (two launches), a bf16 D = 32 group on the 16-byte path, a
+              group of views 4 bytes off a 16-byte boundary on the scalar
+              path, K = 7 means of clamped ids on both paths, and wide-deep's
+              D = 32 and D = 1 and FM's D = 10 and D = 1 table sets on their
+              own seeded tables at B = 512 and 262,144.  An int64 stress:
+              DLRM-MLPerf's largest table (39,979,776 x 128 float32,
+              20.5 GB, freed after) read in its last rows, past 2^31
+              elements, alone and as a group's second member beside a small
+              table.  K = 1 and grouped sums must be bit-equal; means within
+              rtol/atol 1e-6 (float32) or one bf16 ulp; each grouped check
+              must take the expected load path (``v16`` or ``scalar``) and
+              launch once per 64 tables.  The kernel, the plain version and
+              the library yardstick (``F.embedding_bag``; for a group, its
+              per-table calls in one CUDA graph; used nowhere in the port)
+              are timed at the path's shapes as in phase 3.
 7. recsys   — wide-deep at its published size (40 tables of 32 floats and
               40 wide tables, 111,104,000 padded rows, 14.7 GB, seeded on the
               card) through ``recsys.forward`` at the reference's
               ``serve_p99`` (B = 512) and ``serve_bulk`` (B = 262,144)
               shapes, one warm-up and ``--batches`` timed batches each, ids
               uniform over each table: scores finite, bit-equal to the same
-              batch with ``impl="plain"``, exactly 80 bag launches per
-              forward (the launch counters are zeroed just before this
+              batch with ``impl="plain"``, exactly 2 bag launches per
+              forward (one grouped launch for the table_i bags, one for the
+              wide_i bags; the launch counters are zeroed just before this
               phase and read just after; no VNTK counter may move).  Then
-              FM at its published size (1.15 GB) at ``serve_p99``: 78
+              FM at its published size (1.15 GB) at ``serve_p99``: 2
               launches per forward, bit-equal to plain; and MIND at its
               published size (10M x 64 items) at ``retrieval_cand`` (1M
               candidates, no bag launch): finite scores.  The phase's peak
               device memory is printed.
 8. report   — the card's ``nvidia-smi`` name and power limit, one JSON line
-              with a row per kernel function (one per timed shape for the
-              bag), then the last line
+              with a row per kernel function (for the bag, one per timed
+              shape, each with its load ``path``; a single-table row counts
+              the main path's launches at its per-table (B, K, D), all of
+              them grouped), then the last line
               ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Without CUDA, or without the repository's ``src/`` beside it, the script
@@ -976,30 +989,40 @@ def phase_stacked(args, rng, params, cfg, idx):
 
 
 def profile_retrieve(retrieve, retrieve_ms, kernel="vntk"):
-    """Device time by kernel over one retrieve (torch.profiler); the idle
-    share is taken against the unprofiled median ``retrieve_ms``, and
-    ``kernel`` names the port's kernels whose share is reported."""
-    from torch.profiler import ProfilerActivity, profile
+    """Device time by kernel over one retrieve (torch.profiler), recorded
+    after one warm-up step under the profiler (the first traced call loses
+    some of its launches); the idle share is taken against the unprofiled
+    median ``retrieve_ms``, and ``kernel`` names the port's kernels whose
+    share and recorded launches are reported."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        retrieve()
-        torch.cuda.synchronize()
+    traced = []  # the active step's events (the profiler clears them after)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            retrieve()
+            torch.cuda.synchronize()
+            prof.step()
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0))
 
-    rows = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    rows = [e for e in traced[0]  # kernels, not the step's GPU-side span
+            if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
+            and not e.key.startswith("ProfilerStep")]
     busy = sum(dev_us(e) for e in rows) / 1e6
     if not rows:
         log("  profile: no device time recorded (not measured)")
         return
     ours = sum(dev_us(e) for e in rows if kernel in e.key) / 1e6
+    n_ours = sum(e.count for e in rows if kernel in e.key)
     log(f"  profile: device busy {busy * 1e3:.2f} ms per call; idle share "
         f"{1 - busy * 1e3 / retrieve_ms:.3f} of the unprofiled "
-        f"{retrieve_ms:.2f} ms; {kernel} kernels {ours * 1e6:.1f} us "
-        f"({ours / busy:.2e} of device time)")
+        f"{retrieve_ms:.2f} ms; {kernel} kernels {ours * 1e6:.1f} us in "
+        f"{n_ours} launches ({ours / busy:.2e} of device time)")
     for e in sorted(rows, key=lambda e: -dev_us(e))[:15]:
         log(f"    {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:150]}")
 
@@ -1024,6 +1047,20 @@ def bf16_ulp(w):
     return torch.exp2(e - 7)
 
 
+def agree(got, want, exact):
+    """``(ok, max abs err)``: equal where ``exact``, else within rtol/atol
+    1e-6 (float32) or one bf16 ulp."""
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if exact:
+        ok = torch.equal(got, want)
+    elif got.dtype == torch.float32:
+        ok = torch.allclose(g, w, rtol=1e-6, atol=1e-6)
+    else:
+        ok = bool(((g - w).abs() <= bf16_ulp(w)).all())
+    return ok and bool(torch.isfinite(g).all()), err
+
+
 def compare_bag(label, table, ids, mode="sum"):
     """The kernel against its plain version; returns the max abs error.
     K = 1 must be bit-equal (a gather).  K > 1 within rtol/atol 1e-6
@@ -1034,17 +1071,36 @@ def compare_bag(label, table, ids, mode="sum"):
     got = eb.embedding_bag_cuda(table, ids, mode)
     want = eb.embedding_bag_plain(table, ids, mode)
     torch.cuda.synchronize()
-    g, w = got.float(), want.float()
-    err = float((g - w).abs().max()) if g.numel() else 0.0
-    if ids.shape[1] == 1:
-        ok = torch.equal(got, want)
-    elif table.dtype == torch.float32:
-        ok = torch.allclose(g, w, rtol=1e-6, atol=1e-6)
-    else:
-        ok = bool(((g - w).abs() <= bf16_ulp(w)).all())
-    if not ok or not torch.isfinite(g).all():
+    ok, err = agree(got, want, exact=ids.shape[1] == 1)
+    if not ok:
         raise AssertionError(f"embedding_bag [{label}]: differs from plain "
                              f"(max abs err {err:g})")
+    return err
+
+
+def compare_grouped(label, tables, ids, mode="sum", path=None):
+    """The grouped launch against its plain version (the stack of per-table
+    plain bags); returns the max abs error.  It must take ``path`` when
+    given and launch once per 64 tables.  Sums (K = 1 among them) must be
+    bit-equal, means as in :func:`compare_bag`."""
+    from repro_torch.kernels import embedding_bag as eb
+
+    took = eb.load_path(tables)
+    if path is not None and took != path:
+        raise AssertionError(f"embedding_bag grouped [{label}]: took the "
+                             f"{took} path, expected {path}")
+    n = eb.LAUNCHES["embedding_bag"]
+    got = eb.embedding_bag_grouped_cuda(tables, ids, mode)
+    rose = eb.LAUNCHES["embedding_bag"] - n
+    if rose != -(-len(tables) // eb.MAX_TABLES):
+        raise AssertionError(f"embedding_bag grouped [{label}]: {rose} "
+                             f"launches for {len(tables)} tables")
+    want = eb.embedding_bag_grouped_plain(tables, ids, mode)
+    torch.cuda.synchronize()
+    ok, err = agree(got, want, exact=mode == "sum")
+    if not ok:
+        raise AssertionError(f"embedding_bag grouped [{label}]: differs "
+                             f"from plain (max abs err {err:g})")
     return err
 
 
@@ -1067,10 +1123,21 @@ def seeded_table(gen, rows, dim, dtype=torch.float32):
     return t.to(dtype)
 
 
+def bag_row(name, shape, path, err, ms, plain_ms, library_ms, bound,
+            library):
+    """One report row of the bag kernel; ``shape`` (B, F, K, D) finds its
+    main-path launches (F = None: any F, for the single-table rows)."""
+    return dict(name=name, route="cuda", source=BAG_SOURCE,
+                replaces=BAG_REPLACES, path=path, shape=shape,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", library_ms=library_ms, library=library)
+
+
 def phase_bag_kernel(seed):
     """The bag kernel against its plain version (sweep, clamped ids, the
-    path's shapes, the int64 stress) and timed at the path's shapes;
-    returns one report row per timed shape (launches filled in later)."""
+    path's shapes, grouped launches, the int64 stress) and timed at the
+    path's shapes; returns one report row per timed shape (launches filled
+    in later)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import embedding_bag as eb
@@ -1101,6 +1168,10 @@ def phase_bag_kernel(seed):
                 f"clamped ids D={D} K={K} {dtype} {mode}", table, x, mode))
     log(f"  sweep and clamped ids: equal to plain within tolerance, max abs "
         f"err {sweep_err:.3g}")
+    group_err = phase_bag_groups(gen, ids)
+    log(f"  grouped: F = 70 (two launches), bf16 D = 32 on the v16 path, a "
+        f"view 4 bytes off on the scalar path, K = 7 means of clamped ids: "
+        f"equal to plain (sums bit for bit), max abs err {group_err:.3g}")
 
     rows_out = []
     for B, D, R in BAG_TIMED:
@@ -1112,37 +1183,154 @@ def phase_bag_kernel(seed):
                              iters=10)
         library_ms = device_ms(lambda: F.embedding_bag(x, table, mode="sum"))
         bound = bag_bytes(table, x) / HBM_BYTES_PER_S * 1e3
-        log(f"  embedding_bag B={B} K=1 D={D} over {table.shape[0]} rows: "
-            f"bit-equal to plain; {ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f}"
-            f" us, F.embedding_bag {library_ms * 1e3:.2f} us, bound "
-            f"{bound * 1e3:.3f} us)")
-        rows_out.append(dict(
-            name=f"embedding_bag_b{B}_d{D}", route="cuda", source=BAG_SOURCE,
-            replaces=BAG_REPLACES, shape=(B, 1, D), max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
-            library_ms=library_ms))
+        path = eb.load_path([table])
+        log(f"  embedding_bag B={B} K=1 D={D} over {table.shape[0]} rows "
+            f"({path}): bit-equal to plain; {ms * 1e3:.2f} us (plain "
+            f"{plain_ms * 1e3:.2f} us, F.embedding_bag {library_ms * 1e3:.2f}"
+            f" us, bound {bound * 1e3:.3f} us)")
+        rows_out.append(bag_row(
+            f"embedding_bag_b{B}_d{D}", (B, None, 1, D), path, err, ms,
+            plain_ms, library_ms, bound, "F.embedding_bag"))
         del table, x
+    rows_out += time_model_groups(seed, gen)
     bag_int64_stress(gen, ids)
     return rows_out
+
+
+def phase_bag_groups(gen, ids):
+    """Grouped launches at the shapes the model groups do not reach;
+    returns the max abs error."""
+    err = 0.0
+    tables = [seeded_table(gen, int(r), 16) for r in
+              torch.randint(20, 300, (70,), generator=gen, device="cuda")]
+    x = torch.stack([ids(1001, 2, int(t.shape[0]) + 30, lo=-30)
+                     for t in tables], dim=1)
+    err = max(err, compare_grouped("F=70", tables, x, path="v16"))
+    for mode in ("sum", "mean"):
+        tables = [seeded_table(gen, 1000, 32, torch.bfloat16)
+                  for _ in range(5)]
+        x = torch.stack([ids(777, 4, 1000) for _ in tables], dim=1)
+        err = max(err, compare_grouped(f"bf16 D=32 K=4 {mode}", tables, x,
+                                       mode, path="v16"))
+    base = [torch.empty(2001 * 32 + 1, device="cuda").normal_(generator=gen)
+            for _ in range(3)]
+    tables = [b[1:].view(2001, 32) for b in base]  # 4 bytes off
+    x = torch.stack([ids(4099, 1, 2001) for _ in tables], dim=1)
+    err = max(err, compare_grouped("misaligned view", tables, x,
+                                   path="scalar"))
+    for D, dtype, path in ((10, torch.float32, "scalar"),
+                           (10, torch.bfloat16, "scalar"),
+                           (32, torch.float32, "v16"),
+                           (32, torch.bfloat16, "v16")):
+        tables = [seeded_table(gen, 200, D, dtype) for _ in range(4)]
+        for mode in ("mean", "sum"):
+            x = torch.stack([ids(1001, 7, 400, lo=-200) for _ in tables],
+                            dim=1)
+            err = max(err, compare_grouped(
+                f"clamped ids D={D} K=7 {dtype} {mode}", tables, x, mode,
+                path=path))
+    return err
+
+
+def time_model_groups(seed, gen):
+    """The grouped launches of the recsys path on wide-deep's and FM's own
+    tables (seeded at their published sizes): against plain at B = 512 and
+    262,144, and timed at the shapes the main path runs, beside the plain
+    version and the per-table ``F.embedding_bag`` calls in one CUDA graph
+    (the library yardstick).  Returns their report rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import fm, wide_deep
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.models import recsys
+
+    rows_out = []
+    for cfg in (wide_deep.CONFIG, fm.CONFIG):
+        params = recsys.init_params(cfg, seed=seed, device="cuda")
+        for kind in ("table", "wide"):
+            tables = [params[f"{kind}_{i}"] for i in range(cfg.n_sparse)]
+            Fn, D = len(tables), tables[0].shape[1]
+            for B in (512, 262_144):
+                x = torch.stack([
+                    torch.randint(0, v, (B, 1), generator=gen, device="cuda",
+                                  dtype=torch.int32)
+                    for v in cfg.vocab_sizes], dim=1)
+                label = f"{cfg.name} {kind}_i F={Fn} D={D} B={B}"
+                err = compare_grouped(label, tables, x)
+                if cfg is fm.CONFIG and B > 512:
+                    continue  # compared only: FM serves at serve_p99
+                bulk = B > 512
+                ms = device_ms(lambda: eb.embedding_bag_grouped_cuda(
+                    tables, x), iters=20 if bulk else 50)
+                plain_ms = device_ms(lambda: eb.embedding_bag_grouped_plain(
+                    tables, x), iters=3 if bulk else 10)
+                cols = [x[:, f].contiguous() for f in range(Fn)]
+                library_ms = device_ms(
+                    lambda: [F.embedding_bag(c, t, mode="sum")
+                             for c, t in zip(cols, tables)],
+                    iters=3 if bulk else 10)
+                bound = sum(bag_bytes(t, x[:, f]) for f, t in
+                            enumerate(tables)) / HBM_BYTES_PER_S * 1e3
+                size = tables[0].element_size()
+                every = Fn * B * (4 + max(D * size, 32) + D * size) / (
+                    HBM_BYTES_PER_S)
+                path = eb.load_path(tables)
+                log(f"  grouped {label} ({path}): bit-equal to plain; "
+                    f"{ms * 1e3:.2f} us in one launch (plain "
+                    f"{plain_ms * 1e3:.2f} us, {Fn} F.embedding_bag in a CUDA "
+                    f"graph {library_ms * 1e3:.2f} us, bound "
+                    f"{bound * 1e3:.3f} us; {every * 1e6:.3f} us counting "
+                    "every bag's row)")
+                rows_out.append(bag_row(
+                    f"embedding_bag_grouped_{cfg.model}_{kind}_b{B}_f{Fn}_d{D}",
+                    (B, Fn, 1, D), path, err, ms, plain_ms, library_ms, bound,
+                    f"{Fn} x F.embedding_bag in one CUDA graph"))
+                del x, cols
+        del params, tables
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def bag_report(bag_rows, launches):
+    """The bag's report rows with their main-path ``launches`` (by (B, F,
+    K, D)); a single-table row counts the launches at its (B, K, D), any F.
+    Raises if a row's shape is not on the main path."""
+    out = []
+    for row in bag_rows:
+        row = dict(row)
+        B, F, K, D = row.pop("shape")
+        n = sum(v for (b, f, k, d), v in launches.items()
+                if (b, k, d) == (B, K, D) and F in (None, f))
+        if n == 0:
+            raise AssertionError(f"{row['name']}: shape not on the main path")
+        out.append(dict(row, launches=n))
+    return out
 
 
 def bag_int64_stress(gen, ids):
     """DLRM-MLPerf's largest table (20.5 GB, freed after) read in its last
     rows, whose offsets lie past 2^31 elements, K = 1 sums and K = 4 means,
-    a few ids past the end (clamped)."""
+    a few ids past the end (clamped); alone, and as the second member of a
+    group beside a small table."""
     t0 = time.time()
     table = seeded_table(gen, DLRM_LARGEST, 128)
+    small = seeded_table(gen, 1000, 128)
     R1 = table.shape[0]
     lo = R1 - 100_000
     for K, mode in ((1, "sum"), (4, "mean")):
         compare_bag(f"int64 stress K={K} {mode}", table,
                     ids(4096, K, R1 + 50, lo=lo), mode)
+        x = torch.stack([ids(4096, K, 1200, lo=-100),
+                         ids(4096, K, R1 + 50, lo=lo)], dim=1)
+        compare_grouped(f"int64 stress grouped K={K} {mode}", [small, table],
+                        x, mode, path="v16")
     elem = lo * table.shape[1]
     log(f"  int64 stress: {R1} x {table.shape[1]} float32 "
         f"({table.numel() * 4 / 1e9:.2f} GB), rows from element {elem} "
-        f"({'past' if elem >= 2 ** 31 else 'below'} 2^31) equal to plain "
+        f"({'past' if elem >= 2 ** 31 else 'below'} 2^31) equal to plain, "
+        f"alone and in a group beside a 1000-row table "
         f"({time.time() - t0:.1f}s)")
-    del table
+    del table, small
     torch.cuda.empty_cache()
     if elem < 2 ** 31:
         raise AssertionError("the int64 stress stays below 2^31 elements")
@@ -1213,7 +1401,7 @@ def serve_recsys(rng, params, cfg, shape, batches, per_forward):
 def phase_recsys(args, rng):
     """wide-deep at serve_p99 and serve_bulk, FM at serve_p99, MIND at
     retrieval_cand, all at their published sizes; returns the bag kernel's
-    launches by (B, K, D) over that run."""
+    launches by (B, F, K, D) over that run."""
     from repro_torch.configs import RECSYS_SHAPES, fm, mind, wide_deep
     from repro_torch.kernels import embedding_bag as eb
     from repro_torch.kernels import vntk as kv
@@ -1224,12 +1412,14 @@ def phase_recsys(args, rng):
     wd, fm_, mind_ = wide_deep.CONFIG, fm.CONFIG, mind.CONFIG
     params = {cfg.name: init_recsys(cfg, args.seed) for cfg in (wd, fm_, mind_)}
 
+    # per forward, one grouped launch for the 40 (FM: 39) table_i bags and
+    # one for the wide_i bags
     eb.reset_launches()  # the recsys path's run starts here
     ms = {name: serve_recsys(rng, params[wd.name], wd, shapes[name],
-                             args.batches, 2 * wd.n_sparse)
+                             args.batches, 2)
           for name in ("serve_p99", "serve_bulk")}
     serve_recsys(rng, params[fm_.name], fm_, shapes["serve_p99"],
-                 args.batches, 2 * fm_.n_sparse)
+                 args.batches, 2)
     shape, n = shapes["retrieval_cand"], eb.LAUNCHES["embedding_bag"]
     lat = []
     for i in range(args.batches + 1):
@@ -1261,7 +1451,7 @@ def phase_recsys(args, rng):
         raise AssertionError("a VNTK kernel launched on the recsys path")
     if not launches:
         raise AssertionError("embedding_bag never launched on the recsys path")
-    log(f"  bag launches by (B, K, D): {launches}")
+    log(f"  bag launches by (B, F, K, D): {launches}")
 
     if args.profile:
         for name, med in ms.items():
@@ -1361,11 +1551,7 @@ def main() -> int:
             max_abs_err=chk.max_abs_err, ms=float(ms),
             plain_ms=float(plain_ms), bound_ms=float(bound), bound_by="bytes",
             library_ms=None))
-    for row in bag_rows:
-        n = bag_launches.get(row.pop("shape"), 0)
-        if n == 0:
-            raise AssertionError(f"{row['name']}: shape not on the main path")
-        rows.append(dict(row, launches=n))
+    rows += bag_report(bag_rows, bag_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

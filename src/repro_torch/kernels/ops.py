@@ -14,7 +14,7 @@ from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import vntk as _k
 
 __all__ = ["vntk", "vntk_fused_logsoftmax", "vntk_topk", "vntk_compressed",
-           "vntk_compressed_topk", "embedding_bag"]
+           "vntk_compressed_topk", "embedding_bag", "embedding_bag_grouped"]
 
 IMPLS = (None, "plain")
 
@@ -112,3 +112,12 @@ def embedding_bag(table, indices, mode: str = "sum", impl=None):
     fn = (_bag.embedding_bag_cuda if _use_kernel(table, impl)
           else _bag.embedding_bag_plain)
     return fn(table, indices, mode)
+
+
+def embedding_bag_grouped(tables, indices, mode: str = "sum", impl=None):
+    """EmbeddingBag over F tables of one width and dtype: (B, F, K) int32
+    ids -> (B, F, D), table f looked up by column f, as
+    :func:`embedding_bag` per table but in one launch per 64 tables."""
+    fn = (_bag.embedding_bag_grouped_cuda if _use_kernel(indices, impl)
+          else _bag.embedding_bag_grouped_plain)
+    return fn(tables, indices, mode)

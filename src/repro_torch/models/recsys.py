@@ -3,12 +3,16 @@
 
 Shared substrate: large per-feature embedding tables with a zero sentinel
 row (row ``rows``, and the pad rows after it) and fixed-arity EmbeddingBag
-lookups.  Every bag lookup — the ``table_i`` and ``wide_i`` bags and FM's
-first-order term — goes through :func:`repro_torch.kernels.ops.embedding_bag`,
-which launches the CUDA EmbeddingBag kernel on the card and its plain
-version on the CPU; ids are clamped into the table, as the reference's
-``jnp.take(..., mode="clip")`` does.  MIND's history, target and candidate
-gathers stay plain indexing, as the reference's ``jnp.take`` there.
+lookups.  The bag lookups of one kind — all ``table_i`` bags, or all
+``wide_i`` bags (wide-deep's wide part, FM's first-order term) — go through
+one :func:`repro_torch.kernels.ops.embedding_bag_grouped` call over the
+``(B, F, K)`` batch, which launches the CUDA EmbeddingBag kernel once per 64
+tables on the card (2 launches per wide-deep or FM forward, 1 per DLRM
+forward) and its plain version on the CPU; its ``(B, F, D)`` output is what
+the deep MLP reads, with no stack.  Ids are clamped into each table, as
+the reference's ``jnp.take(..., mode="clip")`` does.  MIND's history,
+target and candidate gathers stay plain indexing, as the reference's
+``jnp.take`` there.
 
 Batch layout (all models), tensors on the parameters' device:
   dense  : (B, n_dense) float32                    [dlrm only]
@@ -66,17 +70,18 @@ def _take_clip(table, ids):
 
 
 def _sparse_embeds(params, sparse, n_feats, impl):
-    """-> (B, n_feats, D) stacked bag outputs."""
-    return torch.stack([
-        ops.embedding_bag(params[f"table_{i}"], sparse[:, i, :], impl=impl)
-        for i in range(n_feats)], dim=1)
+    """-> (B, n_feats, D) bag outputs of the ``table_i``, one grouped call."""
+    return ops.embedding_bag_grouped(
+        [params[f"table_{i}"] for i in range(n_feats)], sparse, impl=impl)
 
 
 def _wide_sum(params, sparse, n_feats, impl):
-    """Sum over features of the (B,) first-order ``wide_i`` bags."""
-    return sum(
-        ops.embedding_bag(params[f"wide_{i}"], sparse[:, i, :], impl=impl)[:, 0]
-        for i in range(n_feats))
+    """Sum over features of the (B,) first-order ``wide_i`` bags: one
+    grouped call -> (B, n_feats, 1), then ``0 + w_0 + w_1 + ...`` in the
+    reference's order."""
+    wide = ops.embedding_bag_grouped(
+        [params[f"wide_{i}"] for i in range(n_feats)], sparse, impl=impl)
+    return sum(wide[:, i, 0] for i in range(n_feats))
 
 
 # --------------------------------------------------------------------------
@@ -232,6 +237,6 @@ def init_params(cfg: RecsysConfig, seed: int = 0, device=None):
 
 def forward(params, batch, cfg: RecsysConfig, impl=None) -> torch.Tensor:
     """(B,) float32 scores.  ``impl`` goes to every bag lookup
-    (:func:`repro_torch.kernels.ops.embedding_bag`): ``None`` launches the
-    kernel on the card, ``"plain"`` takes the plain version."""
+    (:func:`repro_torch.kernels.ops.embedding_bag_grouped`): ``None``
+    launches the kernel on the card, ``"plain"`` takes the plain version."""
     return _FWD[cfg.model](params, batch, cfg, impl)

@@ -7,7 +7,7 @@ neither), so they run there with
 
 ``chip_smoke.py`` holds every kernel against its plain version at the
 main paths' shapes; these are the quick checks of the EmbeddingBag
-dispatch and launch counting.
+dispatch and launch counting, for one table and for a group.
 """
 import numpy as np
 import pytest
@@ -58,3 +58,62 @@ def test_bag_kernel_reads_a_feature_column_in_place(rng):
         rng.integers(0, 201, size=(33, 5, 2)).astype(np.int32)).cuda()
     got = bag.embedding_bag_cuda(t, sparse[:, 3, :])
     assert torch.equal(got, bag.embedding_bag_plain(t, sparse[:, 3, :]))
+
+
+def _group(rng, F, B, K, D, dtype, offset=0):
+    """F seeded tables (R_f+1, D) on the card, ``offset`` elements into
+    their storage, and (B, F, K) ids with some out of range."""
+    tables = []
+    for r in rng.integers(20, 300, size=F):
+        flat = torch.from_numpy(
+            rng.normal(size=offset + (r + 1) * D).astype(np.float32))
+        t = flat.to(dtype).cuda()[offset:].view(r + 1, D)
+        t[r] = 0.0
+        tables.append(t)
+    idx = rng.integers(0, 20, size=(B, F, K)).astype(np.int32)
+    idx[::5, :, 0] = -7  # clamped into each table's [0, R_f]
+    idx[1::5, :, -1] = 400
+    return tables, torch.from_numpy(idx).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,F,K,D,dtype,mode,path", [
+    (512, 3, 1, 32, torch.float32, "sum", "v16"),
+    (40, 4, 4, 32, torch.bfloat16, "sum", "v16"),
+    (20, 2, 3, 128, torch.float32, "mean", "v16"),
+    (64, 70, 1, 1, torch.float32, "sum", "scalar"),
+    (33, 5, 7, 10, torch.bfloat16, "mean", "scalar")])
+def test_grouped_launch_equals_plain_on_the_card(rng, B, F, K, D, dtype, mode,
+                                                 path):
+    _card()
+    tables, ids = _group(rng, F, B, K, D, dtype)
+    assert bag.load_path(tables) == path
+    n = bag.LAUNCHES["embedding_bag"]
+    got = ops.embedding_bag_grouped(tables, ids, mode)
+    assert bag.LAUNCHES["embedding_bag"] == n + -(-F // bag.MAX_TABLES)
+    want = ops.embedding_bag_grouped(tables, ids, mode, impl="plain")
+    assert bag.LAUNCHES["embedding_bag"] == n + -(-F // bag.MAX_TABLES)
+    assert got.shape == (B, F, D) and got.is_contiguous()
+    if mode == "sum":  # both add the K rows in the same order
+        assert torch.equal(got, want)
+    elif dtype == torch.float32:  # torch on the card divides by K as a
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)  # * 1/K
+    else:  # ... which may round a bf16 mean the other way: one ulp
+        g, w = got.float(), want.float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool(((g - w).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
+def test_grouped_misaligned_view_takes_the_scalar_path(rng):
+    """Tables 4 bytes off a 16-byte boundary: still the kernel, one launch,
+    on its scalar path."""
+    _card()
+    tables, ids = _group(rng, 3, 100, 1, 32, torch.float32, offset=1)
+    assert all(t.data_ptr() % 16 == 4 for t in tables)
+    assert bag.load_path(tables) == "scalar"
+    n = bag.LAUNCHES["embedding_bag"]
+    got = bag.embedding_bag_grouped_cuda(tables, ids)
+    assert bag.LAUNCHES["embedding_bag"] == n + 1
+    assert torch.equal(got, bag.embedding_bag_grouped_plain(tables, ids))

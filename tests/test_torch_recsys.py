@@ -37,8 +37,9 @@ from repro_torch.models import recsys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = {"wide-deep": wide_deep, "mind": mind, "dlrm-mlperf": dlrm_mlperf,
          "fm": fm}
-# bag lookups per forward: table_i and wide_i bags (wide_deep, fm), table_i
-# bags (dlrm); MIND gathers without bags
+# grouped bag lookups per forward, each over all n_sparse tables: the table_i
+# and the wide_i bags (wide_deep, fm), the table_i bags (dlrm); MIND gathers
+# without bags
 BAGS_PER_FORWARD = {"wide_deep": 2, "fm": 2, "dlrm": 1, "mind": 0}
 
 
@@ -149,19 +150,19 @@ def test_model_forward_matches_jax(arch, monkeypatch):
         jparams, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
 
     calls = []
-    real = ops.embedding_bag
+    real = ops.embedding_bag_grouped
 
-    def counted(*a, **kw):
-        calls.append(1)
-        return real(*a, **kw)
+    def counted(tables, *a, **kw):
+        calls.append(len(tables))
+        return real(tables, *a, **kw)
 
-    monkeypatch.setattr(ops, "embedding_bag", counted)
+    monkeypatch.setattr(ops, "embedding_bag_grouped", counted)
     got = recsys.forward(params, {k: torch.from_numpy(v)
                                   for k, v in batch.items()}, cfg)
     assert got.dtype == torch.float32 and got.shape == (8,)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
-    assert len(calls) == BAGS_PER_FORWARD[cfg.model] * cfg.n_sparse
+    assert calls == [cfg.n_sparse] * BAGS_PER_FORWARD[cfg.model]
 
 
 def test_mind_retrieval_scores_match_jax():
