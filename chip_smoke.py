@@ -34,11 +34,22 @@ Phases (any failure raises and the script exits non-zero):
               from the store's base, where tokens and next states must equal
               the single-matrix kernel's.  The compressed-slab functions run
               the same shapes over the slabs, an int32 slab (V > 32768, a
-              root row of ~40k slots for the mask kernels) besides, and must
-              also equal their uncompressed twin kernels on the same rows.
+              root row of ~40k slots for the mask kernels, cut to 4096 for
+              the topk ones, and level 1) besides, and must also equal their
+              uncompressed twin kernels on the same rows.  The topk kernel
+              takes a warp per row for bmax <= 32 and a block per row above;
+              each topk function must be checked on both routes: the warp
+              route also at bmax = 32 exactly (a root row cut to 32 slots;
+              stacked, the stress rows), and at V = width = 64 with valid
+              log-probs at NEG_INF, -inf and (not fused) -FLT_MAX, where
+              -FLT_MAX candidates must reach the output, and (fused) on
+              logit rows off 16-byte alignment; the block route at the root
+              rows and, stacked, the stress rows at bmax 64.
               Tokens and next states must be equal; scores equal when not
               fused, within rtol/atol 1e-5 when fused.  Device times come
-              from CUDA graphs of back-to-back calls timed by CUDA events.
+              from CUDA graphs of back-to-back calls timed by CUDA events;
+              the topk kernel's latency floor (nb = 1, bmax = 1, width = 8,
+              not fused) is printed.
               The golden traces of ``tests/golden`` (``stacked`` included)
               are replayed through the kernels, with and without the
               compressed slab, and the bf16 attention products on the card
@@ -108,10 +119,11 @@ Phases (any failure raises and the script exits non-zero):
               candidates, no bag launch): finite scores.  The phase's peak
               device memory is printed.
 8. report   — the card's ``nvidia-smi`` name and power limit, one JSON line
-              with a row per kernel function (for the bag, one per timed
-              shape, each with its load ``path``; a single-table row counts
-              the main path's launches at its per-table (B, K, D), all of
-              them grouped), then the last line
+              with a row per kernel function (a VNTK row with the ``path``
+              its main-path levels took, ``warp`` or ``block``; for the bag,
+              one per timed shape, each with its load ``path``; a
+              single-table row counts the main path's launches at its
+              per-table (B, K, D), all of them grouped), then the last line
               ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Without CUDA, or without the repository's ``src/`` beside it, the script
@@ -357,6 +369,15 @@ class KernelCheck:
         self.plain = getattr(kv, f"{self.kernel}_plain")
         self.max_abs_err = 0.0
         self.times = []  # (ms, plain_ms, bound_ms) per main-path level
+        self.paths = []  # the route taken at each main-path level
+        self.routes = set()  # the routes the comparisons took
+
+    def path(self, bmax):
+        """The kernel's route for rows of ``bmax`` slots (the mask kernel
+        has one, a block per row)."""
+        from repro_torch.kernels import vntk as kv
+
+        return kv.topk_path(bmax) if self.topk else "block"
 
     def args(self, values, nodes, cids, tables, bmax, V, width):
         head = (values, nodes) + ((cids,) if self.stacked else ())
@@ -366,6 +387,7 @@ class KernelCheck:
     def compare(self, label, *a, want=None):
         """Kernel against the plain version (or against ``want``, the
         outputs of another kernel on the same rows)."""
+        self.routes.add(self.path(a[4]))
         a = self.args(*a)
         got = self.cuda(*a)
         want = self.plain(*a) if want is None else want
@@ -400,6 +422,7 @@ class KernelCheck:
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"{self.name} [{label}]: differs from its "
                                  "uncompressed twin kernel")
+        return got
 
     def time(self, values, nodes, cids, tables, bmax, V, width):
         a = self.args(values, nodes, cids, tables, bmax, V, width)
@@ -414,14 +437,23 @@ class KernelCheck:
                              bmax, V, width, edge_bytes,
                              base_bytes) / HBM_BYTES_PER_S * 1e3
         self.times.append((ms, plain_ms, bound))
+        self.paths.append(self.path(bmax))
+
+    def main_path(self) -> str:
+        """The route(s) of the main-path levels, e.g. ``warp``."""
+        return "+".join(sorted(set(self.paths)))
 
     def summary(self, levels):
         ms, plain_ms, bound = np.mean(self.times, axis=0)
         twin = " and its uncompressed twin" if self.compressed else ""
+        if self.topk and self.routes != {"warp", "block"}:
+            raise AssertionError(f"{self.name}: compared on the routes "
+                                 f"{sorted(self.routes)}, not on both")
         log(f"  {self.name}: equal to plain{twin} at levels {levels} and "
-            f"stress shapes; max abs err {self.max_abs_err:.3g}; "
-            f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, bound "
-            f"{bound * 1e3:.3f} us) per launch, mean over levels")
+            f"stress shapes (route {'+'.join(sorted(self.routes))}); "
+            f"max abs err {self.max_abs_err:.3g}; {ms * 1e3:.2f} us (plain "
+            f"{plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us) per launch, "
+            f"mean over levels, {self.main_path()} route")
 
 
 def level_nodes(rng, offsets, level, nb):
@@ -436,6 +468,22 @@ def make_values(rng, nb, V, fused, ties=False):
     x = (x * 2).round() / 2 if ties else x.to(torch.bfloat16).float()
     x = x.cuda()
     return x if fused else torch.log_softmax(x, dim=-1)
+
+
+def special_values(rng, nb, V, fused):
+    """:func:`make_values` with a quarter of the columns at -inf and a
+    quarter at NEG_INF (and, as log-probs, an eighth at -FLT_MAX): valid
+    slots whose keys tie with the missing and padding candidates', or fall
+    below them."""
+    from repro_torch.core.vntk import NEG_INF
+
+    x = make_values(rng, nb, V, fused)
+    cols = torch.from_numpy(rng.permutation(V)).cuda()
+    x[:, cols[:V // 4]] = -float("inf")
+    x[:, cols[V // 4:V // 2]] = NEG_INF
+    if not fused:
+        x[:, cols[V // 2:5 * V // 8]] = torch.finfo(torch.float32).min
+    return x
 
 
 def cuda_ints(a):
@@ -465,18 +513,22 @@ def phase_kernels(rng, idx, M, checks):
     slabb = CompressedSlab.from_matrix(tmb)
     if slabb.tok_delta.dtype != torch.int32:
         raise AssertionError(f"V={Vb} slab is {slabb.tok_delta.dtype}")
+    # V = 64: level-1 rows of ~30-40 children, cut at a bmax of 32
+    ft64 = build_flat_trie(rng.integers(0, 64, (3000, 3)), 64, dense_d=0)
+    tm64 = TransitionMatrix.from_flat_trie(ft64, device="cuda")
+    slab64 = CompressedSlab.from_matrix(tm64)
 
     def tables(step, t=tm, sl=slab):  # what the function reads at `step`
         return ((t.row_pointers, sl.tok_delta, sl.base_for_step(step))
                 if chk.compressed else (t.row_pointers, t.edges))
 
-    def compare(label, *a, step, t=tm, sl=slab):
-        values, nodes, bmax, V_ = a
+    def compare(label, values, nodes, bmax, V_=V, *, step, t=tm, sl=slab,
+                width=C):
         tab, pr = tables(step, t, sl), (t.row_pointers, t.edges)
         if chk.compressed:
-            chk.compare_twin(label, values, nodes, None, tab, pr, bmax, V_, C)
-        else:
-            chk.compare(label, values, nodes, None, tab, bmax, V_, C)
+            return chk.compare_twin(label, values, nodes, None, tab, pr, bmax,
+                                    V_, width)
+        return chk.compare(label, values, nodes, None, tab, bmax, V_, width)
 
     for chk in checks:
         for level in range(d, L):
@@ -499,16 +551,71 @@ def phase_kernels(rng, idx, M, checks):
         nodes_np[::7] = 0
         compare(f"bmax {bmax0} root row", make_values(rng, nb, V, chk.fused),
                 cuda_ints(nodes_np), bmax0, V, step=0, t=tm0, sl=slab0)
-        if chk.compressed:  # the int32 slab: its root row (mask) or level 1
-            step = 1 if chk.topk else 0  # (a ~40k-slot topk row overflows smem)
-            nodes_np = level_nodes(rng, ftb.level_offsets, step, nb)
-            nodes_np[::5] = 0
-            compare(f"int32 slab, V={Vb}, step {step}",
-                    make_values(rng, nb, Vb, chk.fused), cuda_ints(nodes_np),
-                    int(ftb.level_bmax[step]), Vb, step=step, t=tmb, sl=slabb)
+        if chk.topk:  # the warp route at its widest: bmax 32, all lanes real
+            compare("root row cut to bmax 32", make_values(rng, nb, V,
+                                                           chk.fused),
+                    cuda_ints(nodes_np), 32, V, step=0, t=tm0, sl=slab0)
+            warp_minf_rows(compare, rng, chk, ft64.level_offsets, None,
+                           t=tm64, sl=slab64)
+        if chk.topk and chk.fused:  # rows 4 bytes off 16: the scalar loads
+            compare("logit rows off 16-byte alignment",
+                    make_values(rng, nb, V + 1, True)[:, 1:],
+                    cuda_ints(level_nodes(rng, ft.level_offsets, d, nb)),
+                    int(ft.level_bmax[d]), V, step=d)
+        if chk.compressed:  # the int32 slab: its root row (mask; a ~40k-slot
+            # topk row overflows smem, so cut to 4096 slots) and level 1
+            for step in ((0, 1) if chk.topk else (0,)):
+                nodes_np = level_nodes(rng, ftb.level_offsets, step, nb)
+                nodes_np[::5] = 0
+                bmax = int(ftb.level_bmax[step])
+                if chk.topk and step == 0:
+                    bmax = 4096
+                compare(f"int32 slab, V={Vb}, step {step}, bmax {bmax}",
+                        make_values(rng, nb, Vb, chk.fused),
+                        cuda_ints(nodes_np), bmax, Vb, step=step, t=tmb,
+                        sl=slabb)
         chk.summary(f"{d}-{L - 1}")
     log(f"  int32 slab: V={Vb}, {tmb.n_edges} edges, root row of "
         f"{int(ftb.level_bmax[0])} slots")
+
+
+def warp_minf_rows(compare, rng, chk, offsets, cids, **tables):
+    """A topk function on the warp route at V = width = 64: level-1 rows
+    (of a member per id when ``cids`` are given; some at the sink) cut to
+    bmax 32, valid log-probs at NEG_INF and -inf (-FLT_MAX too when not
+    fused), so candidates at -FLT_MAX reach the output."""
+    nb = 67
+    if cids is None:
+        nodes_np, head = level_nodes(rng, offsets, 1, nb), ()
+    else:
+        ids = np.resize(cids, nb).astype(np.int32)
+        nodes_np, head = stacked_rows(rng, offsets, ids, 1), (cuda_ints(ids),)
+    nodes_np[::6] = 0
+    got = compare("V=64, width 64, log-probs at NEG_INF, -inf",
+                  special_values(rng, nb, 64, chk.fused), cuda_ints(nodes_np),
+                  *head, 32, step=1, V_=64, width=64, **tables)
+    if not bool((got[0] == torch.finfo(torch.float32).min).any()):
+        raise AssertionError(f"{chk.name}: no -FLT_MAX candidate written")
+
+
+def latency_floor(rng, idx):
+    """One launch of the warp route with nothing but the load chain to do:
+    ``vntk_topk_cuda`` at nb = 1, bmax = 1, width = 8, not fused, on a row
+    of the deepest level, checked against the plain version and timed as
+    the kernel rows are."""
+    from repro_torch.kernels import vntk as kv
+
+    ft, tm = idx["ft"], idx["tm"]
+    V = ft.vocab_size
+    nodes = cuda_ints(level_nodes(rng, ft.level_offsets, ft.sid_length - 1, 1))
+    args = (make_values(rng, 1, V, False), nodes, tm.row_pointers, tm.edges,
+            1, V, 8)
+    got, want = kv.vntk_topk_cuda(*args), kv.vntk_topk_plain(*args)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("latency floor launch differs from plain")
+    ms = device_ms(lambda: kv.vntk_topk_cuda(*args))
+    log(f"  latency floor: vntk_topk ({kv.topk_path(1)} route) at nb=1, "
+        f"bmax=1, width=8, not fused: {ms * 1e3:.2f} us per launch")
 
 
 def stacked_rows(rng, offsets, cids, level):
@@ -524,6 +631,8 @@ def phase_stacked_kernels(rng, idx, M, checks, full_size):
     against their twins too."""
     from repro_torch.constraints import ConstraintStore
     from repro_torch.core.compressed_slab import CompressedSlab
+    from repro_torch.core.transition_matrix import TransitionMatrix
+    from repro_torch.core.trie import build_flat_trie
     from repro_torch.core.vntk import candidate_width
     from repro_torch.kernels import vntk as kv
 
@@ -531,19 +640,27 @@ def phase_stacked_kernels(rng, idx, M, checks, full_size):
     V, L, d, K = store.vocab_size, store.sid_length, store.dense_d, store.num_sets
     nb, C = K * M, candidate_width(M, V)
     cids_np = np.repeat(np.arange(K, dtype=np.int32), M)  # a request per slot
+    # two V = 64 members: level-1 rows of ~30-40 children, cut at bmax 32
+    fts64 = [build_flat_trie(rng.integers(0, 64, (n, 3)), 64, dense_d=0)
+             for n in (3000, 2000)]
+    offsets64 = [f.level_offsets for f in fts64]
+    store64 = ConstraintStore.from_matrices(
+        [TransitionMatrix.from_flat_trie(f, device="cuda") for f in fts64],
+        device="cuda")
+    slab64 = CompressedSlab.from_store(store64)
 
     def tables(step, st=store, sl=idx["store_slab"]):
         return ((st.row_pointers, sl.tok_delta, sl.base_for_step(step))
                 if chk.compressed else (st.row_pointers, st.edges))
 
     def compare(label, values, nodes, cids, bmax, step, st=store,
-                sl=idx["store_slab"], want=None):
+                sl=idx["store_slab"], want=None, width=C, V_=V):
         tab, pr = tables(step, st, sl), (st.row_pointers, st.edges)
         if chk.compressed and want is None:
-            chk.compare_twin(label, values, nodes, cids, tab, pr, bmax, V, C)
-        else:
-            chk.compare(label, values, nodes, cids, tab, bmax, V, C,
-                        want=want)
+            return chk.compare_twin(label, values, nodes, cids, tab, pr, bmax,
+                                    V_, width)
+        return chk.compare(label, values, nodes, cids, tab, bmax, V_, width,
+                           want=want)
 
     for chk in checks:
         for level in range(d, L):
@@ -563,6 +680,13 @@ def phase_stacked_kernels(rng, idx, M, checks, full_size):
                 make_values(rng, 349, V, chk.fused, ties=True),
                 cuda_ints(nodes_np), cuda_ints(stress),
                 store.bmax_for_step(d), d)
+        if chk.topk:  # the same rows at bmax 32 (warp) and 64 (block)
+            for bmax in (32, 64):
+                compare(f"prime nb, sink rows, clamped ids, bmax {bmax}",
+                        make_values(rng, 349, V, chk.fused),
+                        cuda_ints(nodes_np), cuda_ints(stress), bmax, d)
+            warp_minf_rows(compare, rng, chk, offsets64, [0, 1], st=store64,
+                           sl=slab64)
     # offset stress: ten copies of the trie at headroom 0; rows on the last
     # member's deepest level, whose edges lie past 2^31 int32 elements
     t0 = time.time()
@@ -1499,6 +1623,7 @@ def main() -> int:
     M = static_gr.BEAM_SIZE
     checks = {name: KernelCheck(name) for name in KERNELS}
     phase_kernels(rng, idx, M, [c for c in checks.values() if not c.stacked])
+    latency_floor(rng, idx)
     phase_stacked_kernels(rng, idx, M,
                           [c for c in checks.values() if c.stacked],
                           full_size=args.constraints is None)
@@ -1550,7 +1675,7 @@ def main() -> int:
             replaces=chk.replaces, launches=launches[chk.name],
             max_abs_err=chk.max_abs_err, ms=float(ms),
             plain_ms=float(plain_ms), bound_ms=float(bound), bound_by="bytes",
-            library_ms=None))
+            library_ms=None, path=chk.main_path()))
     rows += bag_report(bag_rows, bag_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,8 @@
 //       vntk_mask_kernel<FUSED, false, delta> <- vntk_compressed_pallas
 //       vntk_topk_kernel<FUSED, true, delta>  <- vntk_stacked_compressed_topk_pallas
 //       vntk_mask_kernel<FUSED, true, delta>  <- vntk_stacked_compressed_pallas
+// (each vntk_topk_kernel above stands for both topk routes, the
+// vntk_topk_warp_kernel of the same template arguments included).
 //
 // STACKED reads a multi-tenant ConstraintStore: row_pointers (K, S+1) and
 // edges (K, E, 2), row r through member k = cids[r].  That is one extra
@@ -38,7 +40,8 @@
 // row_start + slot + base, base the member's next-state base of this level
 // (bases[k * base_stride]).  The kernels decode only the row's n_real slots:
 // a block-wide inclusive prefix sum of the int32-cast deltas (warp shuffles,
-// block_scan) over chunks of kThreads slots with a running carry.  The topk
+// block_scan) over chunks of kThreads slots with a running carry, or on the
+// warp route one warp's scan of its <= 32 slots (warp_scan).  The topk block
 // kernel writes the decoded slots into the shared arrays it stages anyway;
 // the mask kernel scatters each chunk as it is decoded, so a root row of any
 // width needs no extra shared memory.  The reference decodes the whole burst
@@ -47,26 +50,39 @@
 // edge_stride elements in, computed in int64 (ten 20M-SID members hold about
 // 1.1e9 int16 deltas, 2.2 GB).
 //
-// What bounds it on this card: bytes.  Per beam row the step reads its
-// constraint id (STACKED), one CSR row pointer pair, at most n_child
-// (token, next) pairs (or 2-byte deltas) and, when FUSED, the whole (V,)
-// f32 logit row; it writes (C,) scores/tokens/next states (topk) or the
-// (V,) masked row and (V,) next-state map (mask).  At the main paths' shapes (nb = 140 single
-// or 350 stacked, V = 2048, C = 72) that is at most ~2.9 MB of logits read
-// when fused and 350 * 72 * 12 B = 302 KB written by topk: about a
-// microsecond at 3.35 TB/s, so launch latency dominates.
+// What bounds it on this card.  Per beam row the step reads its constraint
+// id (STACKED), one CSR row pointer pair, at most n_child (token, next)
+// pairs (or 2-byte deltas) and, when FUSED, the whole (V,) f32 logit row; it
+// writes (C,) scores/tokens/next states (topk) or the (V,) masked row and
+// (V,) next-state map (mask).  At the main paths' shapes (nb = 140 single or
+// 350 stacked, V = 2048, C = 72) that is at most ~2.9 MB of logits read when
+// fused and 350 * 72 * 12 B = 302 KB written by topk: about a microsecond
+// at 3.35 TB/s.  What bounds the topk step is latency: a launch, then a
+// chain of dependent loads (node, member, row pointers, slot, log-prob).
 //
-// What the design does about it: one thread block per beam row, no
-// staging beyond what the row needs.  The TPU kernel's compare-broadcast
+// What the design does about it.  The TPU kernel's compare-broadcast
 // projection, beam tiling and DMA semaphores worked around the TPU's
 // missing VMEM scatter (DESIGN.md §3.3); here the row is a plain gather of
-// the valid slots' log-probs, the mask variant scatters them (the paper's
-// form), and the top-C selection is a rank-by-counting pass in shared
-// memory: rank[j] = #{j' : key[j'] > key[j] or (key[j'] == key[j] and
-// j' < j)}.  The index tie-break is the dense path's flat-index order
-// (slots are token-ascending), which bit-identity rests on (DESIGN.md §8).
-// Only slots below n_child are read, so a burst never leaves the row; the
-// builder's tail pad still bounds the speculative width bmax.
+// the valid slots' log-probs and the mask variant scatters them (the
+// paper's form).  The topk launcher picks one of two routes by bmax:
+//   * bmax <= 32 (every sparse level of the main paths): a warp per beam
+//     row (vntk_topk_warp_kernel), lane j on slot j, a block per warp (four
+//     rows a block made the fused rows slower: their row reads then shared
+//     an SM), no shared memory and no barrier.  The fused row's loads are
+//     issued while the chase waits, the log-sum-exp is one pass, and the
+//     top-C selection is in closed form (ballots and shuffles, no
+//     O((bmax + C)^2) rank).  Bounded by the chain of dependent loads and
+//     the launch.
+//   * bmax > 32 (a root row, the stress shapes): a block per beam row
+//     (vntk_topk_kernel), the candidates staged in shared memory and ranked
+//     by counting, rank[j] = #{j' : key[j'] > key[j] or (key[j'] == key[j]
+//     and j' < j)}: O((bmax + C)^2 / 256) per thread, bounded by that and
+//     the block's barriers.
+// Both keep the same order: key descending, then candidate index, which is
+// the dense path's flat-index order (slots are token-ascending), on which
+// bit-identity rests (DESIGN.md §8).  Only slots below n_child are read, so
+// a burst never leaves the row; the builder's tail pad still bounds the
+// speculative width bmax.  The mask kernel is a block per row.
 //
 // The launchers return cudaGetLastError() of the launch; the caller raises
 // on a non-zero value.  They launch on the caller's stream and allocate
@@ -75,6 +91,7 @@
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <climits>
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -83,6 +100,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kWarpBmax = 32;  // topk rows of at most this many slots: a warp
+constexpr int kLseBatch = 16;  // float4 loads in flight per lane, warp route
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1.0e10f;  // NEG_INF of core/vntk.py
 constexpr float kMinF = -FLT_MAX;    // jnp.finfo(float32).min
 
@@ -298,6 +319,210 @@ __global__ void __launch_bounds__(kThreads) vntk_topk_kernel(
   }
 }
 
+// Warp-wide inclusive prefix sum of one int per lane, in lane order.
+__device__ __forceinline__ int warp_scan(int v) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += n;
+  }
+  return v;
+}
+
+// The largest of v over the warp, on every lane: the floats mapped to
+// unsigned ints of the same order, reduced by one redux.
+__device__ __forceinline__ float warp_max(float v) {
+  unsigned u = __float_as_uint(v);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  u = __reduce_max_sync(kFull, u);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// exp(d) for d <= 0 (an element less the running max) on the exp2 unit.
+__device__ __forceinline__ float exp_le0(float d) {
+  return exp2f(d * kLog2e);
+}
+
+// A row's (max m, log of the sum of exp(x - m)) in one pass over memory by
+// one warp.  The constructor issues the first kLseBatch 16-byte loads of
+// each lane (lane l takes float4s l, l+32, ...: a 2048-wide row at once)
+// and returns, so the chase's loads go on.  finish() folds the row into an
+// online pair per lane, batch by batch: m rises to the batch's max over the
+// lane's elements (s scaled by exp(m_old - m_new)), then the lane adds the
+// batch's exp(x - m), 64 independent terms summed as a tree.  No lane waits
+// on another until the end, where the pairs meet: the row's max by one
+// redux, each s scaled to it, one butterfly sum.  A row that is not 16-byte
+// aligned, or V % 4 != 0, is read by scalar loads into the same pairs.
+// Without FUSED it loads nothing and is not used.
+template <bool FUSED>
+struct WarpRowLse {
+  const float* x;
+  int V;
+  bool vec = false;
+  float4 v[kLseBatch];
+
+  __device__ __forceinline__ WarpRowLse(const float* row, int V_)
+      : x(row), V(V_) {
+    if (!FUSED) return;
+    vec = (V & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    if (vec) load(0);
+  }
+
+  // float4s b + lane + 32 u of the row, -inf past its end
+  __device__ __forceinline__ void load(int b) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const int n4 = V >> 2, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int u = 0; u < kLseBatch; ++u) {
+      const int k = b + lane + 32 * u;
+      v[u] = k < n4 ? __ldg(x4 + k)
+                    : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    }
+  }
+
+  // (m, log s) of the row; (0, 0) without FUSED
+  __device__ __forceinline__ float2 finish() {
+    if (!FUSED) return make_float2(0.f, 0.f);
+    // this lane's pair; m starts at -FLT_MAX, so -inf adds 0, never NaN
+    float m = kMinF, s = 0.f;
+    if (vec) {
+      for (int b = 0;;) {  // b is the same on every lane
+        float r[kLseBatch];
+#pragma unroll
+        for (int u = 0; u < kLseBatch; ++u)
+          r[u] = fmaxf(fmaxf(v[u].x, v[u].y), fmaxf(v[u].z, v[u].w));
+#pragma unroll
+        for (int w = kLseBatch / 2; w > 0; w >>= 1)
+#pragma unroll
+          for (int u = 0; u < w; ++u) r[u] = fmaxf(r[u], r[u + w]);
+        if (r[0] > m) {
+          s *= exp_le0(m - r[0]);
+          m = r[0];
+        }
+#pragma unroll
+        for (int u = 0; u < kLseBatch; ++u)
+          r[u] = (exp_le0(v[u].x - m) + exp_le0(v[u].y - m)) +
+                 (exp_le0(v[u].z - m) + exp_le0(v[u].w - m));
+#pragma unroll
+        for (int w = kLseBatch / 2; w > 0; w >>= 1)
+#pragma unroll
+          for (int u = 0; u < w; ++u) r[u] += r[u + w];
+        s += r[0];
+        b += 32 * kLseBatch;
+        if (b >= (V >> 2)) break;
+        load(b);
+      }
+    } else {
+      for (int i = threadIdx.x & 31; i < V; i += 32) {
+        const float xi = __ldg(x + i);
+        if (xi > m) {
+          s = s * exp_le0(m - xi) + 1.f;
+          m = xi;
+        } else {
+          s += exp_le0(xi - m);
+        }
+      }
+    }
+    const float mr = warp_max(m);
+    return make_float2(mr, logf(warp_sum(s * exp_le0(m - mr))));
+  }
+};
+
+// A warp per beam row, alone in its block, for rows of bmax <= kWarpBmax
+// slots: lane j holds slot j.  The same function as
+// vntk_topk_kernel, with no shared memory and no barrier:
+//   1. the pointer chase: nodes[row] and the member (cids[row], its base)
+//      first, then the row's pointer pair, then lane j's slot (an int2 pair,
+//      or a delta decoded by a warp scan), then its log-prob's logit;
+//   2. when FUSED, the row's log-sum-exp in one pass (WarpRowLse), its
+//      first batch's loads issued while the chase waits on its own, folded
+//      after the last link;
+//   3. the selection in closed form.  The i-th missing token is i + cnt(i),
+//      cnt(i) = |{j < n_real : tok_j - j <= i}|; the in-range ones (key
+//      NEG_INF) are a prefix of i, the rest are -FLT_MAX.  Slot j's rank
+//      counts the slots before it in (key desc, index asc) order (a shuffle
+//      per real slot; the padding slots at -FLT_MAX in closed form) and the
+//      missing candidates with a greater key (they all have greater
+//      indices).  Missing candidate i's rank counts the slots with a key >=
+//      its own (one of two ballots) and the i missing ones before it.  Ranks
+//      are a permutation of [0, bmax + width): each output is written once.
+template <bool FUSED, bool STACKED, typename Edge>
+__global__ void __launch_bounds__(32) vntk_topk_warp_kernel(
+    const float* __restrict__ values, int64_t ld, const int* __restrict__ nodes,
+    Tables t, int V, int bmax, int width, float* __restrict__ out_sc,
+    int* __restrict__ out_tok, int* __restrict__ out_next) {
+  const int lane = threadIdx.x;
+  const int row = blockIdx.x;
+
+  // 1. the chase's head, then (FUSED) the row's loads, then the chase
+  const int node = nodes[row];
+  const Member<STACKED, Edge> mem(t, row);
+  const float* x = values + row * ld;
+  WarpRowLse<FUSED> row_lse(x, V);
+  const int start = mem.rp[node];
+  const int n_real = max(0, min(mem.rp[node + 1] - start, bmax));
+  const bool real = lane < n_real;
+  const Edge e = real ? mem.edges[start + lane] : Edge{};
+  int tok, nx;
+  if constexpr (kDelta<Edge>) {
+    tok = warp_scan(static_cast<int>(e));
+    nx = start + lane + mem.base;
+  } else {
+    tok = e.x;
+    nx = e.y;
+  }
+  const float xv = real ? x[min(max(tok, 0), V - 1)] : 0.f;
+  // 2. the log-prob of the slot
+  const float2 lse = row_lse.finish();
+  float key = kMinF;
+  if (real) key = FUSED ? (xv - lse.x) - lse.y : xv;
+  if (!real) tok = nx = 0;
+
+  // 3. the selection
+  float* sc = out_sc + static_cast<int64_t>(row) * width;
+  int* tk = out_tok + static_cast<int64_t>(row) * width;
+  int* nxo = out_next + static_cast<int64_t>(row) * width;
+  const bool cand = lane < bmax;
+  const int c_neg = __popc(__ballot_sync(kFull, cand && key >= kNegInf));
+  const int c_min = __popc(__ballot_sync(kFull, cand && key >= kMinF));
+  const int g = real ? tok - lane : INT_MAX;  // missing tokens below tok
+  int n_in = 0;  // in-range missing tokens among the first `width`
+  for (int i0 = 0; i0 < width; i0 += 32) {
+    const int i = i0 + lane;
+    int cnt = 0;
+    for (int q = 0; q < n_real; ++q) cnt += __shfl_sync(kFull, g, q) <= i;
+    const int miss = i + cnt;
+    const bool live = i < width;
+    const bool in_range = live && miss < V;
+    n_in += __popc(__ballot_sync(kFull, in_range));
+    const int rank = (in_range ? c_neg : c_min) + i;
+    if (live && rank < width) {
+      sc[rank] = in_range ? kNegInf : kMinF;
+      tk[rank] = in_range ? miss : 0;
+      nxo[rank] = 0;
+    }
+  }
+  int rank = 0;
+  for (int q = 0; q < n_real; ++q) {
+    const float kq = __shfl_sync(kFull, key, q);
+    rank += (kq > key) || (kq == key && q < lane);
+  }
+  const int n_pad = bmax - n_real;  // slots [n_real, bmax) at -FLT_MAX
+  rank += kMinF > key ? n_pad
+                      : (kMinF == key ? min(max(lane - n_real, 0), n_pad) : 0);
+  rank += (kNegInf > key ? n_in : 0) + (kMinF > key ? width - n_in : 0);
+  if (cand && rank < width) {
+    sc[rank] = key;
+    tk[rank] = tok;
+    nxo[rank] = nx;
+  }
+}
+
 // One block per beam row: the vocab-aligned masked log-prob row (NEG_INF off
 // the trie) and next-state map (0 when invalid), by fill then scatter.
 template <bool FUSED, bool STACKED, typename Edge>
@@ -346,7 +571,10 @@ cudaError_t prepare_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+bool warp_route(int bmax) { return bmax <= kWarpBmax; }
+
 size_t topk_smem_bytes(int bmax, int width) {
+  if (warp_route(bmax)) return 0;
   return static_cast<size_t>(bmax + width) * (sizeof(float) + 2 * sizeof(int));
 }
 
@@ -363,8 +591,15 @@ struct Rows {
   cudaStream_t stream;
 };
 
+// bmax <= kWarpBmax: a warp per row; wider rows: a block per row.
 template <bool FUSED, bool STACKED, typename Edge>
 int launch_topk(const Rows& r, const Tables& t) {
+  if (warp_route(r.bmax)) {
+    vntk_topk_warp_kernel<FUSED, STACKED, Edge><<<r.nb, 32, 0, r.stream>>>(
+        r.values, r.ld, r.nodes, t, r.V, r.bmax, r.width, r.out_sc, r.out_tok,
+        r.out_next);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = topk_smem_bytes(r.bmax, r.width);
   const cudaError_t err =
       prepare_smem(vntk_topk_kernel<FUSED, STACKED, Edge>, smem);
@@ -417,10 +652,14 @@ Tables single(const int* row_pointers, const void* edges, const int* base) {
 
 extern "C" {
 
-// Shared memory the topk kernels need for bmax + width candidate keys.
+// Shared memory the topk kernel needs for bmax + width candidate keys (none
+// on the warp route).
 size_t vntk_topk_smem_bytes(int bmax, int width) {
   return topk_smem_bytes(bmax, width);
 }
+
+// 1 if rows of bmax slots take the warp route, 0 for the block route.
+int vntk_topk_warp_route(int bmax) { return warp_route(bmax) ? 1 : 0; }
 
 int vntk_topk_launch(const float* values, int64_t ld, const int* nodes,
                      const int* row_pointers, const int* edges, int nb, int V,

@@ -23,6 +23,11 @@ wrapper (fused)                                  replaces (``src/repro/kernels/v
 ``vntk_stacked_compressed_mask_cuda`` (both)     ``vntk_stacked_compressed_pallas``
 ===============================================  ==========================================
 
+The topk kernel takes one of two routes by ``bmax`` (:func:`topk_path`): a
+warp per beam row for rows of at most 32 slots, a block per row above; each
+call is one launch either way.  :func:`topk_ranks_closed_form` models the
+warp route's selection on the CPU.
+
 A wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, raises on what the kernel does not take, and launches on the
 current stream.  ``LAUNCHES`` counts each function's launches (its key is
@@ -38,6 +43,7 @@ import functools
 import torch
 
 from repro_torch.core.vntk import (
+    NEG_INF,
     vntk_compressed_reference,
     vntk_compressed_topk_reference,
     vntk_reference_scatter,
@@ -57,7 +63,8 @@ __all__ = ["LAUNCHES", "counter_name", "reset_launches", "vntk_topk_cuda",
            "vntk_stacked_compressed_topk_cuda",
            "vntk_stacked_compressed_mask_cuda", "vntk_compressed_topk_plain",
            "vntk_compressed_mask_plain", "vntk_stacked_compressed_topk_plain",
-           "vntk_stacked_compressed_mask_plain"]
+           "vntk_stacked_compressed_mask_plain", "topk_path",
+           "topk_ranks_closed_form"]
 
 KERNELS = ("vntk_topk", "vntk_mask", "vntk_stacked_topk", "vntk_stacked_mask",
            "vntk_compressed_topk", "vntk_compressed_mask",
@@ -101,6 +108,8 @@ def _lib() -> ctypes.CDLL:
         getattr(lib, f"{kernel}_launch").restype = ctypes.c_int
     lib.vntk_topk_smem_bytes.argtypes = [i, i]
     lib.vntk_topk_smem_bytes.restype = ctypes.c_size_t
+    lib.vntk_topk_warp_route.argtypes = [i]
+    lib.vntk_topk_warp_route.restype = ctypes.c_int
     return lib
 
 
@@ -383,3 +392,86 @@ def vntk_stacked_compressed_mask_plain(values, nodes, cids, row_pointers,
     return vntk_stacked_compressed_reference(
         _normalize(values, fused), nodes, cids, row_pointers, tok_delta,
         base_k, bmax, vocab)
+
+
+def topk_path(bmax: int) -> str:
+    """The route the topk launcher takes for rows of ``bmax`` slots, read
+    from the built library: ``"warp"`` (a warp per beam row) or ``"block"``
+    (a block per beam row)."""
+    return "warp" if _lib().vntk_topk_warp_route(int(bmax)) else "block"
+
+
+def topk_ranks_closed_form(keys, toks, n_real, bmax: int, width: int,
+                           vocab: int):
+    """The warp route's selection (``vntk_topk_warp_kernel`` in
+    ``csrc/vntk.cu``) in plain torch, step for step; no path calls it.
+
+    Row ``r``'s lane ``j`` holds slot ``j``: its key ``keys[r, j]`` (the
+    log-prob at its token) and token ``toks[r, j]``, both read only below
+    ``n_real[r]``; slots from ``n_real`` to ``bmax`` are ``-FLT_MAX``.  A
+    warp ballot is a sum over the lanes, a shuffle an index along them.
+    Returns ``(scores, tokens, source)``, each ``(nb, width)``: the first
+    ``width`` candidates in ``(key desc, index asc)`` order, ``source``
+    being the candidate index (slot ``j``, or ``bmax + i`` for the ``i``-th
+    missing token) — what a stable descending sort of the candidates puts
+    there.
+    """
+    if not 1 <= bmax <= 32:
+        raise ValueError(f"the warp route takes bmax in [1, 32], got {bmax}")
+    nb, dev = keys.shape[0], keys.device
+    minf = torch.finfo(torch.float32).min
+    lane = torch.arange(32, device=dev)[None, :]
+    n_real = n_real.reshape(nb, 1).long()
+    real = lane < n_real
+    pad = torch.zeros((nb, 32 - bmax), device=dev)
+    key = torch.where(real, torch.cat([keys.float(), pad], 1), minf)
+    tok = torch.where(real, torch.cat([toks.long(), pad.long()], 1), 0)
+    cand = lane < bmax
+    # missing tokens below tok_j: g_j = tok_j - j, non-decreasing over a row
+    g = torch.where(real, tok - lane, torch.iinfo(torch.int32).max)
+    # slots with a key >= each of the two keys a missing candidate can have
+    c_neg = (cand & (key >= NEG_INF)).sum(1, keepdim=True)
+    c_min = (cand & (key >= minf)).sum(1, keepdim=True)
+
+    scores = torch.full((nb, width), float("nan"), device=dev)
+    tokens = torch.full((nb, width), -1, dtype=torch.int32, device=dev)
+    source = torch.full((nb, width), -1, dtype=torch.long, device=dev)
+    rows = torch.arange(nb, device=dev)[:, None].expand(nb, 32)
+
+    def write(ok, rank, sc, tk, src):
+        r, c = rows[ok], rank[ok]
+        if bool((source[r, c] >= 0).any()):
+            raise AssertionError("two candidates took one rank")
+        scores[r, c], tokens[r, c], source[r, c] = sc[ok], tk[ok].int(), src[ok]
+
+    n_in = torch.zeros((nb, 1), dtype=torch.long, device=dev)
+    for i0 in range(0, width, 32):  # lane l takes missing token i0 + l
+        i = i0 + lane
+        cnt = torch.zeros((nb, 32), dtype=torch.long, device=dev)
+        for q in range(bmax):  # q < n_real: a shuffle of g from lane q
+            cnt += (q < n_real) & (g[:, q:q + 1] <= i)
+        t = i + cnt
+        live = i < width
+        in_range = live & (t < vocab)
+        n_in += in_range.sum(1, keepdim=True)
+        rank = torch.where(in_range, c_neg, c_min) + i
+        write(live & (rank < width), rank,
+              torch.where(in_range, NEG_INF, minf).expand(nb, 32),
+              torch.where(in_range, t, 0), bmax + i.expand(nb, 32))
+
+    # slot j: the slots before it in (key desc, index asc), then the missing
+    # candidates with a greater key (all of them have a greater index)
+    rank = torch.zeros((nb, 32), dtype=torch.long, device=dev)
+    for q in range(bmax):  # q < n_real: a shuffle of the key from lane q
+        kq = key[:, q:q + 1]
+        rank += (q < n_real) & ((kq > key) | ((kq == key) & (q < lane)))
+    # the padding slots [n_real, bmax), all at -FLT_MAX, in closed form
+    n_pad = bmax - n_real
+    rank += torch.where(minf > key, n_pad, torch.where(
+        minf == key, (lane - n_real).clamp(min=0).minimum(n_pad), 0))
+    rank += torch.where(NEG_INF > key, n_in, 0)
+    rank += torch.where(minf > key, width - n_in, 0)
+    write(cand & (rank < width), rank, key, tok, lane.expand(nb, 32))
+    if bool((source < 0).any()):
+        raise AssertionError("a rank below width was not written")
+    return scores, tokens, source

@@ -7,14 +7,22 @@ neither), so they run there with
 
 ``chip_smoke.py`` holds every kernel against its plain version at the
 main paths' shapes; these are the quick checks of the EmbeddingBag
-dispatch and launch counting, for one table and for a group.
+dispatch and launch counting, for one table and for a group, and of the
+VNTK topk kernel's two routes (a warp per row up to bmax 32, a block per
+row above) for each of its eight instantiations.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.constraints import ConstraintStore
+from repro_torch.core.compressed_slab import CompressedSlab
+from repro_torch.core.transition_matrix import TransitionMatrix
+from repro_torch.core.trie import build_flat_trie
+from repro_torch.core.vntk import NEG_INF
 from repro_torch.kernels import embedding_bag as bag
 from repro_torch.kernels import ops
+from repro_torch.kernels import vntk as kv
 
 
 def _card():
@@ -117,3 +125,82 @@ def test_grouped_misaligned_view_takes_the_scalar_path(rng):
     got = bag.embedding_bag_grouped_cuda(tables, ids)
     assert bag.LAUNCHES["embedding_bag"] == n + 1
     assert torch.equal(got, bag.embedding_bag_grouped_plain(tables, ids))
+
+
+def _topk_args(rng, stacked, compressed, bmax, fused, nb=37, V=64):
+    """A topk function's arguments on small tries over V tokens (dense_d =
+    0; two as a store when ``stacked``): rows at the sink, at the root (V
+    children) and on level 1 (~30-40 children at V = 64), logits or
+    log-probs with columns at NEG_INF and -inf, width V."""
+    fts = [build_flat_trie(rng.integers(0, V, (n, 3)), V, dense_d=0)
+           for n in (3000, 1500)[:2 if stacked else 1]]
+    mats = [TransitionMatrix.from_flat_trie(f, device="cuda") for f in fts]
+    tables = (ConstraintStore.from_matrices(mats, device="cuda") if stacked
+              else mats[0])
+    ids = rng.integers(0, len(fts), nb).astype(np.int32)
+    nodes = np.array([rng.integers(fts[k].level_offsets[1],
+                                   fts[k].level_offsets[2]) for k in ids],
+                     np.int32)
+    nodes[::5], nodes[1::5] = 0, 1  # the sink and the root
+    x = torch.from_numpy(rng.normal(size=(nb, V)).astype(np.float32) * 4)
+    x[:, ::7], x[:, 3::11] = -float("inf"), NEG_INF
+    values = (x if fused else torch.log_softmax(x, -1)).cuda()
+    head = [values, torch.from_numpy(nodes).cuda()]
+    if stacked:
+        head.append(torch.from_numpy(ids).cuda())
+    if compressed:
+        slab = CompressedSlab.build(tables)
+        csr = [tables.row_pointers, slab.tok_delta, slab.base_for_step(1)]
+    else:
+        csr = [tables.row_pointers, tables.edges]
+    return head + csr + [bmax, V, V, fused]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kernel", [
+    "vntk_topk", "vntk_stacked_topk", "vntk_compressed_topk",
+    "vntk_stacked_compressed_topk"])
+@pytest.mark.parametrize("bmax,path", [(32, "warp"), (33, "block")])
+def test_topk_routes_equal_plain_on_the_card(rng, kernel, fused, bmax, path):
+    """Rows cut at bmax = 32 take the warp route, at 33 the block route:
+    each launches once and equals the plain version (tokens and next
+    states exactly, scores exactly or, fused, within 1e-5)."""
+    _card()
+    assert kv.topk_path(bmax) == path
+    args = _topk_args(rng, "stacked" in kernel, "compressed" in kernel, bmax,
+                      fused)
+    name = kv.counter_name(kernel, fused)
+    n = kv.LAUNCHES[name]
+    got = getattr(kv, f"{kernel}_cuda")(*args)
+    assert kv.LAUNCHES[name] == n + 1
+    want = getattr(kv, f"{kernel}_plain")(*args)
+    assert kv.LAUNCHES[name] == n + 1
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    if fused:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [
+    "vntk_topk", "vntk_stacked_topk", "vntk_compressed_topk",
+    "vntk_stacked_compressed_topk"])
+def test_topk_warp_route_reads_unaligned_logit_rows(rng, kernel):
+    """Fused logit rows 4 bytes off a 16-byte boundary (and V % 4 != 0):
+    the warp route's scalar loads, equal to the plain version."""
+    _card()
+    for offset, V in ((1, 64), (0, 62)):
+        args = _topk_args(rng, "stacked" in kernel, "compressed" in kernel, 32,
+                          True, V=V)
+        wide = torch.full((args[0].shape[0], V + offset), -3.0,
+                          device="cuda")
+        wide[:, offset:] = args[0]
+        args[0] = wide[:, offset:]
+        got = getattr(kv, f"{kernel}_cuda")(*args)
+        want = getattr(kv, f"{kernel}_plain")(*args)
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g, w)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
