@@ -44,12 +44,20 @@ Phases (any failure raises and the script exits non-zero):
               log-probs at NEG_INF, -inf and (not fused) -FLT_MAX, where
               -FLT_MAX candidates must reach the output, and (fused) on
               logit rows off 16-byte alignment; the block route at the root
-              rows and, stacked, the stress rows at bmax 64.
+              rows and, stacked, the stress rows at bmax 64.  The mask
+              kernel is a block per row whose warp 0 holds the slots for
+              bmax <= 32 (the "warp" path) and whose block scatters them
+              above (the "block" path); each mask function must be checked
+              on both: root rows cut to bmax 32 and 33, level-1 rows of
+              small tries at V = 64 and V = 62 (V % 4 != 0: scalar loads
+              and scalar fill) cut to 32 and 33 with valid values at
+              NEG_INF, -inf and (not fused) -FLT_MAX, and (fused) logit
+              rows off 16-byte alignment.
               Tokens and next states must be equal; scores equal when not
               fused, within rtol/atol 1e-5 when fused.  Device times come
               from CUDA graphs of back-to-back calls timed by CUDA events;
-              the topk kernel's latency floor (nb = 1, bmax = 1, width = 8,
-              not fused) is printed.
+              the latency floor of each kernel (nb = 1, bmax = 1, not
+              fused; topk width 8) is printed.
               The golden traces of ``tests/golden`` (``stacked`` included)
               are replayed through the kernels, with and without the
               compressed slab, and the bf16 attention products on the card
@@ -120,7 +128,8 @@ Phases (any failure raises and the script exits non-zero):
               device memory is printed.
 8. report   — the card's ``nvidia-smi`` name and power limit, one JSON line
               with a row per kernel function (a VNTK row with the ``path``
-              its main-path levels took, ``warp`` or ``block``; for the bag,
+              its main-path levels took, ``warp`` or ``block``, for topk
+              and mask alike; for the bag,
               one per timed shape, each with its load ``path``; a
               single-table row counts the main path's launches at its
               per-table (B, K, D), all of them grouped), then the last line
@@ -373,11 +382,11 @@ class KernelCheck:
         self.routes = set()  # the routes the comparisons took
 
     def path(self, bmax):
-        """The kernel's route for rows of ``bmax`` slots (the mask kernel
-        has one, a block per row)."""
+        """The kernel's route for rows of ``bmax`` slots: ``warp`` or
+        ``block``."""
         from repro_torch.kernels import vntk as kv
 
-        return kv.topk_path(bmax) if self.topk else "block"
+        return kv.topk_path(bmax) if self.topk else kv.mask_path(bmax)
 
     def args(self, values, nodes, cids, tables, bmax, V, width):
         head = (values, nodes) + ((cids,) if self.stacked else ())
@@ -446,7 +455,7 @@ class KernelCheck:
     def summary(self, levels):
         ms, plain_ms, bound = np.mean(self.times, axis=0)
         twin = " and its uncompressed twin" if self.compressed else ""
-        if self.topk and self.routes != {"warp", "block"}:
+        if self.routes != {"warp", "block"}:
             raise AssertionError(f"{self.name}: compared on the routes "
                                  f"{sorted(self.routes)}, not on both")
         log(f"  {self.name}: equal to plain{twin} at levels {levels} and "
@@ -513,10 +522,8 @@ def phase_kernels(rng, idx, M, checks):
     slabb = CompressedSlab.from_matrix(tmb)
     if slabb.tok_delta.dtype != torch.int32:
         raise AssertionError(f"V={Vb} slab is {slabb.tok_delta.dtype}")
-    # V = 64: level-1 rows of ~30-40 children, cut at a bmax of 32
-    ft64 = build_flat_trie(rng.integers(0, 64, (3000, 3)), 64, dense_d=0)
-    tm64 = TransitionMatrix.from_flat_trie(ft64, device="cuda")
-    slab64 = CompressedSlab.from_matrix(tm64)
+    # V = 64 and 62: level-1 rows of ~30-40 children, cut at a bmax of 32
+    small = {V_: small_tables(rng, V_, (3000,)) for V_ in (64, 62)}
 
     def tables(step, t=tm, sl=slab):  # what the function reads at `step`
         return ((t.row_pointers, sl.tok_delta, sl.base_for_step(step))
@@ -551,13 +558,18 @@ def phase_kernels(rng, idx, M, checks):
         nodes_np[::7] = 0
         compare(f"bmax {bmax0} root row", make_values(rng, nb, V, chk.fused),
                 cuda_ints(nodes_np), bmax0, V, step=0, t=tm0, sl=slab0)
-        if chk.topk:  # the warp route at its widest: bmax 32, all lanes real
-            compare("root row cut to bmax 32", make_values(rng, nb, V,
-                                                           chk.fused),
-                    cuda_ints(nodes_np), 32, V, step=0, t=tm0, sl=slab0)
-            warp_minf_rows(compare, rng, chk, ft64.level_offsets, None,
-                           t=tm64, sl=slab64)
-        if chk.topk and chk.fused:  # rows 4 bytes off 16: the scalar loads
+        for bmax in (32, 33):  # one warp with all 32 lanes real; the block
+            compare(f"root row cut to bmax {bmax}",
+                    make_values(rng, nb, V, chk.fused), cuda_ints(nodes_np),
+                    bmax, V, step=0, t=tm0, sl=slab0)
+        for V_, (offsets, t_, sl_) in small.items():
+            if chk.topk and V_ == 64:
+                warp_minf_rows(compare, rng, chk, offsets, None, t=t_,
+                               sl=sl_)
+            elif not chk.topk:
+                mask_small_rows(compare, rng, chk, offsets, None, V_, t=t_,
+                                sl=sl_)
+        if chk.fused:  # rows 4 bytes off 16: the scalar loads
             compare("logit rows off 16-byte alignment",
                     make_values(rng, nb, V + 1, True)[:, 1:],
                     cuda_ints(level_nodes(rng, ft.level_offsets, d, nb)),
@@ -579,43 +591,89 @@ def phase_kernels(rng, idx, M, checks):
         f"{int(ftb.level_bmax[0])} slots")
 
 
-def warp_minf_rows(compare, rng, chk, offsets, cids, **tables):
-    """A topk function on the warp route at V = width = 64: level-1 rows
-    (of a member per id when ``cids`` are given; some at the sink) cut to
-    bmax 32, valid log-probs at NEG_INF and -inf (-FLT_MAX too when not
-    fused), so candidates at -FLT_MAX reach the output."""
-    nb = 67
+def small_tables(rng, V, counts):
+    """Tries over V tokens of ``counts`` random length-3 SIDs each
+    (dense_d=0) on the card: ``(level offsets, matrix, slab)`` for one, or
+    ``(their level offsets, store, slab)`` for several."""
+    from repro_torch.constraints import ConstraintStore
+    from repro_torch.core.compressed_slab import CompressedSlab
+    from repro_torch.core.transition_matrix import TransitionMatrix
+    from repro_torch.core.trie import build_flat_trie
+
+    fts = [build_flat_trie(rng.integers(0, V, (n, 3)), V, dense_d=0)
+           for n in counts]
+    mats = [TransitionMatrix.from_flat_trie(f, device="cuda") for f in fts]
+    if len(mats) == 1:
+        return fts[0].level_offsets, mats[0], CompressedSlab.from_matrix(
+            mats[0])
+    store = ConstraintStore.from_matrices(mats, device="cuda")
+    return ([f.level_offsets for f in fts], store,
+            CompressedSlab.from_store(store))
+
+
+def small_rows(rng, offsets, cids, nb=67):
+    """Level-1 rows of a small trie (of a member per id when ``cids`` are
+    given), every sixth at the sink: ``(nodes, head)``, ``head`` holding
+    the ids on the card when stacked."""
     if cids is None:
         nodes_np, head = level_nodes(rng, offsets, 1, nb), ()
     else:
         ids = np.resize(cids, nb).astype(np.int32)
         nodes_np, head = stacked_rows(rng, offsets, ids, 1), (cuda_ints(ids),)
     nodes_np[::6] = 0
+    return cuda_ints(nodes_np), head
+
+
+def warp_minf_rows(compare, rng, chk, offsets, cids, **tables):
+    """A topk function on the warp route at V = width = 64: level-1 rows
+    (of a member per id when ``cids`` are given; some at the sink) cut to
+    bmax 32, valid log-probs at NEG_INF and -inf (-FLT_MAX too when not
+    fused), so candidates at -FLT_MAX reach the output."""
+    nodes, head = small_rows(rng, offsets, cids)
     got = compare("V=64, width 64, log-probs at NEG_INF, -inf",
-                  special_values(rng, nb, 64, chk.fused), cuda_ints(nodes_np),
+                  special_values(rng, nodes.shape[0], 64, chk.fused), nodes,
                   *head, 32, step=1, V_=64, width=64, **tables)
     if not bool((got[0] == torch.finfo(torch.float32).min).any()):
         raise AssertionError(f"{chk.name}: no -FLT_MAX candidate written")
 
 
+def mask_small_rows(compare, rng, chk, offsets, cids, V, **tables):
+    """A mask function on both paths over a small trie of V tokens:
+    level-1 rows (of a member per id when ``cids`` are given; some at the
+    sink) cut to bmax 32 and 33, valid values at NEG_INF, -inf and (not
+    fused) -FLT_MAX.  At V = 62 (V % 4 != 0) the row's loads and the fill
+    take their scalar code."""
+    for bmax in (32, 33):
+        nodes, head = small_rows(rng, offsets, cids)
+        compare(f"V={V}, bmax {bmax}, values at NEG_INF, -inf",
+                special_values(rng, nodes.shape[0], V, chk.fused), nodes,
+                *head, bmax, step=1, V_=V, width=V, **tables)
+
+
 def latency_floor(rng, idx):
-    """One launch of the warp route with nothing but the load chain to do:
-    ``vntk_topk_cuda`` at nb = 1, bmax = 1, width = 8, not fused, on a row
-    of the deepest level, checked against the plain version and timed as
-    the kernel rows are."""
+    """One launch of each VNTK kernel with little but the load chain to do:
+    ``vntk_topk_cuda`` (width = 8) and ``vntk_mask_cuda`` (its V-wide fill
+    besides) at nb = 1, bmax = 1, not fused, on a row of the deepest level,
+    checked against the plain version and timed as the kernel rows are."""
     from repro_torch.kernels import vntk as kv
 
     ft, tm = idx["ft"], idx["tm"]
     V = ft.vocab_size
     nodes = cuda_ints(level_nodes(rng, ft.level_offsets, ft.sid_length - 1, 1))
-    args = (make_values(rng, 1, V, False), nodes, tm.row_pointers, tm.edges,
-            1, V, 8)
-    got, want = kv.vntk_topk_cuda(*args), kv.vntk_topk_plain(*args)
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("latency floor launch differs from plain")
-    ms = device_ms(lambda: kv.vntk_topk_cuda(*args))
-    log(f"  latency floor: vntk_topk ({kv.topk_path(1)} route) at nb=1, "
-        f"bmax=1, width=8, not fused: {ms * 1e3:.2f} us per launch")
+    head = (make_values(rng, 1, V, False), nodes, tm.row_pointers, tm.edges,
+            1, V)
+    for kernel, path, tail in (("vntk_topk", kv.topk_path(1), (8,)),
+                               ("vntk_mask", kv.mask_path(1), ())):
+        cuda = getattr(kv, f"{kernel}_cuda")
+        args = head + tail
+        got, want = cuda(*args), getattr(kv, f"{kernel}_plain")(*args)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{kernel} latency floor launch differs "
+                                 "from plain")
+        ms = device_ms(lambda: cuda(*args))
+        log(f"  latency floor: {kernel} ({path} {'route' if tail else 'path'})"
+            f" at nb=1, bmax=1{', width=8' if tail else ''}, not fused: "
+            f"{ms * 1e3:.2f} us per launch")
 
 
 def stacked_rows(rng, offsets, cids, level):
@@ -631,8 +689,6 @@ def phase_stacked_kernels(rng, idx, M, checks, full_size):
     against their twins too."""
     from repro_torch.constraints import ConstraintStore
     from repro_torch.core.compressed_slab import CompressedSlab
-    from repro_torch.core.transition_matrix import TransitionMatrix
-    from repro_torch.core.trie import build_flat_trie
     from repro_torch.core.vntk import candidate_width
     from repro_torch.kernels import vntk as kv
 
@@ -640,14 +696,10 @@ def phase_stacked_kernels(rng, idx, M, checks, full_size):
     V, L, d, K = store.vocab_size, store.sid_length, store.dense_d, store.num_sets
     nb, C = K * M, candidate_width(M, V)
     cids_np = np.repeat(np.arange(K, dtype=np.int32), M)  # a request per slot
-    # two V = 64 members: level-1 rows of ~30-40 children, cut at bmax 32
-    fts64 = [build_flat_trie(rng.integers(0, 64, (n, 3)), 64, dense_d=0)
-             for n in (3000, 2000)]
-    offsets64 = [f.level_offsets for f in fts64]
-    store64 = ConstraintStore.from_matrices(
-        [TransitionMatrix.from_flat_trie(f, device="cuda") for f in fts64],
-        device="cuda")
-    slab64 = CompressedSlab.from_store(store64)
+    # two members over V = 64 and 62: level-1 rows of ~30-40 children, cut
+    # at bmax 32; and two over V (dense_d=0), whose root rows hold ~2000
+    small = {V_: small_tables(rng, V_, (3000, 2000)) for V_ in (64, 62)}
+    wide = small_tables(rng, V, (20_000, 10_000))
 
     def tables(step, st=store, sl=idx["store_slab"]):
         return ((st.row_pointers, sl.tok_delta, sl.base_for_step(step))
@@ -685,8 +737,23 @@ def phase_stacked_kernels(rng, idx, M, checks, full_size):
                 compare(f"prime nb, sink rows, clamped ids, bmax {bmax}",
                         make_values(rng, 349, V, chk.fused),
                         cuda_ints(nodes_np), cuda_ints(stress), bmax, d)
+            offsets64, store64, slab64 = small[64]
             warp_minf_rows(compare, rng, chk, offsets64, [0, 1], st=store64,
                            sl=slab64)
+        else:  # each member's root row cut to bmax 32 (warp) and 33 (block)
+            roots = cuda_ints(stacked_rows(rng, wide[0], stress, 0))
+            for bmax in (32, 33):
+                compare(f"root rows, clamped ids, bmax {bmax}",
+                        make_values(rng, 349, V, chk.fused), roots,
+                        cuda_ints(stress), bmax, 0, st=wide[1], sl=wide[2])
+            for V_, (offsets_, st_, sl_) in small.items():
+                mask_small_rows(compare, rng, chk, offsets_, [0, 1], V_,
+                                st=st_, sl=sl_)
+        if chk.fused:  # rows 4 bytes off 16: the scalar loads
+            compare("logit rows off 16-byte alignment",
+                    make_values(rng, 349, V + 1, True)[:, 1:],
+                    cuda_ints(nodes_np), cuda_ints(stress),
+                    store.bmax_for_step(d), d)
     # offset stress: ten copies of the trie at headroom 0; rows on the last
     # member's deepest level, whose edges lie past 2^31 int32 elements
     t0 = time.time()

@@ -40,10 +40,10 @@
 // row_start + slot + base, base the member's next-state base of this level
 // (bases[k * base_stride]).  The kernels decode only the row's n_real slots:
 // a block-wide inclusive prefix sum of the int32-cast deltas (warp shuffles,
-// block_scan) over chunks of kThreads slots with a running carry, or on the
-// warp route one warp's scan of its <= 32 slots (warp_scan).  The topk block
-// kernel writes the decoded slots into the shared arrays it stages anyway;
-// the mask kernel scatters each chunk as it is decoded, so a root row of any
+// block_scan) over chunks of one slot a thread with a running carry, or for
+// rows of <= 32 slots one warp's scan (warp_scan).  The topk block kernel
+// writes the decoded slots into the shared arrays it stages anyway; the
+// mask kernel scatters each chunk as it is decoded, so a root row of any
 // width needs no extra shared memory.  The reference decodes the whole burst
 // and masks what lies past the row end; slots past n_child are not read here
 // at all, with the same outputs.  A member's delta row starts k *
@@ -57,8 +57,9 @@
 // (V,) next-state map (mask).  At the main paths' shapes (nb = 140 single or
 // 350 stacked, V = 2048, C = 72) that is at most ~2.9 MB of logits read when
 // fused and 350 * 72 * 12 B = 302 KB written by topk: about a microsecond
-// at 3.35 TB/s.  What bounds the topk step is latency: a launch, then a
-// chain of dependent loads (node, member, row pointers, slot, log-prob).
+// at 3.35 TB/s.  The mask writes 8 bytes a column, 2.3 MB at nb = 140:
+// 0.7 us.  What bounds both steps is latency: a launch, then a chain of
+// dependent loads (node, member, row pointers, slot, log-prob).
 //
 // What the design does about it.  The TPU kernel's compare-broadcast
 // projection, beam tiling and DMA semaphores worked around the TPU's
@@ -82,7 +83,16 @@
 // the dense path's flat-index order (slots are token-ascending), on which
 // bit-identity rests (DESIGN.md §8).  Only slots below n_child are read, so
 // a burst never leaves the row; the builder's tail pad still bounds the
-// speculative width bmax.  The mask kernel is a block per row.
+// speculative width bmax.
+//
+// The mask kernel is a block of 128 per row on both routes, with one
+// barrier: warp 0 runs the chase while warps 1-3 write the vocab-wide fill
+// with 16-byte stores and, when FUSED, fold the row's 16-byte loads into a
+// one-pass log-sum-exp.  For bmax <= 32 (every sparse level of the main
+// paths) warp 0 holds the slots in its lanes and scatters them after the
+// barrier: no block scan, no shared staging.  Wider rows scatter chunk by
+// chunk after the barrier.  The fold is the same code on both routes and
+// for every Edge, so a compressed function stays bit-equal to its twin.
 //
 // The launchers return cudaGetLastError() of the launch; the caller raises
 // on a non-zero value.  They launch on the caller's stream and allocate
@@ -100,7 +110,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kWarpBmax = 32;  // topk rows of at most this many slots: a warp
+constexpr int kWarpBmax = 32;  // rows of at most this many slots: one warp
 constexpr int kLseBatch = 16;  // float4 loads in flight per lane, warp route
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -131,8 +141,11 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 
 // Block-wide inclusive prefix sum of one int per thread, in thread order:
 // a shuffle scan in each warp, then one over the warps' totals.  `total`
-// receives the block's sum.  Every thread of the block must call it.
+// receives the block's sum.  Every thread of the block (of THREADS) must
+// call it.
+template <int THREADS>
 __device__ __forceinline__ int block_scan(int v, int* part, int& total) {
+  constexpr int kBlockWarps = THREADS / 32;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int o = 1; o < 32; o <<= 1) {
     const int n = __shfl_up_sync(0xffffffffu, v, o);
@@ -141,16 +154,16 @@ __device__ __forceinline__ int block_scan(int v, int* part, int& total) {
   if (lane == 31) part[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    int w = lane < kWarps ? part[lane] : 0;
-    for (int o = 1; o < kWarps; o <<= 1) {
+    int w = lane < kBlockWarps ? part[lane] : 0;
+    for (int o = 1; o < kBlockWarps; o <<= 1) {
       const int n = __shfl_up_sync(0xffffffffu, w, o);
       if (lane >= o) w += n;
     }
-    if (lane < kWarps) part[lane] = w;
+    if (lane < kBlockWarps) part[lane] = w;
   }
   __syncthreads();
   if (warp > 0) v += part[warp - 1];
-  total = part[kWarps - 1];
+  total = part[kBlockWarps - 1];
   __syncthreads();  // part is reused by the next chunk
   return v;
 }
@@ -219,17 +232,17 @@ struct Member {
 
 // Decodes the delta slots [0, n_real) of the row starting at `start`, chunk
 // by chunk, and calls slot(j, token, next) for each.  Every thread of the
-// block must call it (n_real is the same for all of them).
-template <bool STACKED, typename Edge, typename Slot>
+// block (of THREADS) must call it (n_real is the same for all of them).
+template <int THREADS, bool STACKED, typename Edge, typename Slot>
 __device__ __forceinline__ void for_each_delta_slot(
     const Member<STACKED, Edge>& mem, int start, int n_real, int* part,
     Slot slot) {
   int carry = 0;  // the tokens' prefix sum over the chunks before
-  for (int c0 = 0; c0 < n_real; c0 += kThreads) {
+  for (int c0 = 0; c0 < n_real; c0 += THREADS) {
     const int j = c0 + threadIdx.x;
     const int d = j < n_real ? static_cast<int>(mem.edges[start + j]) : 0;
     int total;
-    const int tok = carry + block_scan(d, part, total);
+    const int tok = carry + block_scan<THREADS>(d, part, total);
     if (j < n_real) slot(j, tok, start + j + mem.base);
     carry += total;
   }
@@ -261,7 +274,8 @@ __global__ void __launch_bounds__(kThreads) vntk_topk_kernel(
 
   // candidate slots of the CSR row (token-ascending)
   if constexpr (kDelta<Edge>) {
-    for_each_delta_slot(mem, start, n_real, part, [&](int j, int tok, int nx) {
+    for_each_delta_slot<kThreads>(mem, start, n_real, part,
+                                  [&](int j, int tok, int nx) {
       keys[j] = lp(min(max(tok, 0), V - 1));
       toks[j] = tok;
       nexts[j] = nx;
@@ -523,42 +537,223 @@ __global__ void __launch_bounds__(32) vntk_topk_warp_kernel(
   }
 }
 
+// The mask kernel's block and its workers: warps 1.. (warp 0 runs the
+// chase).
+constexpr int kMaskThreads = 128;
+constexpr int kMaskWarps = kMaskThreads / 32;
+constexpr int kMaskWorkers = kMaskThreads - 32;
+// float4 loads in flight per worker: a row of up to 3072 at once
+constexpr int kMaskBatch = 8;
+
+// One worker's share of a row's (max m, sum of exp(x - m)) in one pass
+// over memory: WarpRowLse's fold over kMaskWorkers threads (worker w takes
+// float4s w, w + kMaskWorkers, ...).  The constructor issues the worker's
+// first kMaskBatch 16-byte loads and returns, so the fill's stores go out
+// while they land.  fold() folds the row into an online pair, batch by
+// batch: m rises to the batch's max (s scaled by exp(m_old - m_new)), then
+// s adds the batch's exp(x - m), summed as a tree.  m starts at -FLT_MAX,
+// so a -inf logit adds 0, never NaN.  A row that is not 16-byte aligned,
+// or V % 4 != 0, is read by scalar loads into the same pair.  Without
+// FUSED it loads nothing and is not used.  (One template for this and
+// WarpRowLse made the topk warp kernel's fused rows ~5% slower.)
+template <bool FUSED>
+struct WorkerRowLse {
+  const float* x;
+  int V, w;
+  bool vec = false;
+  float4 v[kMaskBatch];
+
+  __device__ __forceinline__ WorkerRowLse(const float* row, int V_, int w_)
+      : x(row), V(V_), w(w_) {
+    if (!FUSED) return;
+    vec = (V & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    if (vec) load(0);
+  }
+
+  // float4s b + w + kMaskWorkers u of the row, -inf past its end
+  __device__ __forceinline__ void load(int b) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const int n4 = V >> 2;
+#pragma unroll
+    for (int u = 0; u < kMaskBatch; ++u) {
+      const int k = b + w + kMaskWorkers * u;
+      v[u] = k < n4 ? __ldg(x4 + k)
+                    : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+    }
+  }
+
+  // this worker's (m, s); (-FLT_MAX, 0) when it holds no element
+  __device__ __forceinline__ float2 fold() {
+    float m = kMinF, s = 0.f;
+    if (vec) {
+      for (int b = 0;;) {  // b is the same on every worker
+        float r[kMaskBatch];
+#pragma unroll
+        for (int u = 0; u < kMaskBatch; ++u)
+          r[u] = fmaxf(fmaxf(v[u].x, v[u].y), fmaxf(v[u].z, v[u].w));
+#pragma unroll
+        for (int h = kMaskBatch / 2; h > 0; h >>= 1)
+#pragma unroll
+          for (int u = 0; u < h; ++u) r[u] = fmaxf(r[u], r[u + h]);
+        if (r[0] > m) {
+          s *= exp_le0(m - r[0]);
+          m = r[0];
+        }
+#pragma unroll
+        for (int u = 0; u < kMaskBatch; ++u)
+          r[u] = (exp_le0(v[u].x - m) + exp_le0(v[u].y - m)) +
+                 (exp_le0(v[u].z - m) + exp_le0(v[u].w - m));
+#pragma unroll
+        for (int h = kMaskBatch / 2; h > 0; h >>= 1)
+#pragma unroll
+          for (int u = 0; u < h; ++u) r[u] += r[u + h];
+        s += r[0];
+        b += kMaskWorkers * kMaskBatch;
+        if (b >= (V >> 2)) break;
+        load(b);
+      }
+    } else {
+      for (int i = w; i < V; i += kMaskWorkers) {
+        const float xi = __ldg(x + i);
+        if (xi > m) {
+          s = s * exp_le0(m - xi) + 1.f;
+          m = xi;
+        } else {
+          s += exp_le0(xi - m);
+        }
+      }
+    }
+    return make_float2(m, s);
+  }
+};
+
+// The mask kernel's fill and, when FUSED, its row's log-sum-exp, by the
+// workers while warp 0 chases.  A worker issues its row loads
+// (WorkerRowLse), writes its columns of NEG_INF and 0 (16-byte stores where
+// both output rows are 16-byte aligned, which V % 4 == 0 gives; scalar
+// stores otherwise), then folds the row into its pair; each warp merges its
+// pairs as WarpRowLse does (the max by one redux, each s scaled to it, one
+// butterfly sum) into red[warp].  Then the kernel's one barrier, which also
+// orders the fill before the scatter; after it every thread merges the
+// warps' pairs in warp order.  Returns (m, log s) of the row, (0, 0)
+// without FUSED.
+template <bool FUSED>
+__device__ __forceinline__ float2 fill_and_lse(const float* x, int V, float* o,
+                                               int* on, float2* red) {
+  const int warp = threadIdx.x >> 5;
+  if (warp > 0) {
+    const int w = threadIdx.x - 32;
+    WorkerRowLse<FUSED> lse(x, V, w);
+    const uintptr_t rows = reinterpret_cast<uintptr_t>(o) |
+                           reinterpret_cast<uintptr_t>(on);
+    const bool vec = (V & 3) == 0 && (rows & 15) == 0;
+    if (vec) {
+      float4* o4 = reinterpret_cast<float4*>(o);
+      int4* on4 = reinterpret_cast<int4*>(on);
+      for (int k = w; k < (V >> 2); k += kMaskWorkers) {
+        o4[k] = make_float4(kNegInf, kNegInf, kNegInf, kNegInf);
+        on4[k] = make_int4(0, 0, 0, 0);
+      }
+    } else {
+      for (int k = w; k < V; k += kMaskWorkers) {
+        o[k] = kNegInf;
+        on[k] = 0;
+      }
+    }
+    if constexpr (FUSED) {
+      const float2 p = lse.fold();
+      const float mr = warp_max(p.x);
+      const float sr = warp_sum(p.y * exp_le0(p.x - mr));
+      if ((threadIdx.x & 31) == 0) red[warp] = make_float2(mr, sr);
+    }
+  }
+  __syncthreads();
+  if constexpr (!FUSED) return make_float2(0.f, 0.f);
+  float m = red[1].x;
+#pragma unroll
+  for (int q = 2; q < kMaskWarps; ++q) m = fmaxf(m, red[q].x);
+  float s = 0.f;
+#pragma unroll
+  for (int q = 1; q < kMaskWarps; ++q) s += red[q].y * exp_le0(red[q].x - m);
+  return make_float2(m, logf(s));
+}
+
 // One block per beam row: the vocab-aligned masked log-prob row (NEG_INF off
 // the trie) and next-state map (0 when invalid), by fill then scatter.
-template <bool FUSED, bool STACKED, typename Edge>
-__global__ void __launch_bounds__(kThreads) vntk_mask_kernel(
+// WARP (bmax <= kWarpBmax, every sparse level of the main paths):
+//   1. warp 0 runs the pointer chase first: nodes[row] and the member
+//      (cids[row], its base), then the row's pointer pair, then lane j's
+//      slot (an int2 pair, or a delta decoded by a warp scan), then its
+//      logit x[tok], all kept in registers;
+//   2. meanwhile warps 1.. fill the row and, when FUSED, fold it
+//      (fill_and_lse), and the block meets at its one barrier;
+//   3. warp 0 scatters its slots from registers.
+// Otherwise (a root row, the stress shapes) every thread runs the chase,
+// then the same fill and barrier, then the slots are scattered chunk by
+// chunk (for_each_delta_slot's block scan, or a strided int2 loop).  Only
+// slots below n_child are read; tokens outside [0, V) are not written.
+// Tokens within a row are distinct, so no two slots write one column.
+template <bool FUSED, bool STACKED, typename Edge, bool WARP>
+__global__ void __launch_bounds__(kMaskThreads) vntk_mask_kernel(
     const float* __restrict__ values, int64_t ld, const int* __restrict__ nodes,
     Tables t, int V, int bmax, float* __restrict__ out_lp,
     int* __restrict__ out_next) {
-  __shared__ float red[kWarps];
-  __shared__ int part[kWarps];
+  __shared__ float2 red[kMaskWarps];
+  __shared__ int part[kMaskWarps];
   const int row = blockIdx.x;
-  const RowLogProb<FUSED> lp(values + row * ld, V, red);
+  const float* x = values + row * ld;
   float* o = out_lp + static_cast<int64_t>(row) * V;
   int* on = out_next + static_cast<int64_t>(row) * V;
-  for (int v = threadIdx.x; v < V; v += kThreads) {
-    o[v] = kNegInf;
-    on[v] = 0;
-  }
-  const Member<STACKED, Edge> mem(t, row);
-  const int node = nodes[row];
-  const int start = mem.rp[node];
-  const int n_real = max(0, min(mem.rp[node + 1] - start, bmax));
-  __syncthreads();  // the fill lands before the scatter overwrites it
-  // tokens within a row are distinct, so no two slots write one column
-  if constexpr (kDelta<Edge>) {
-    for_each_delta_slot(mem, start, n_real, part, [&](int, int tok, int nx) {
-      if (tok >= 0 && tok < V) {
-        o[tok] = lp(tok);
-        on[tok] = nx;
+  if constexpr (WARP) {
+    const int lane = threadIdx.x;
+    int tok = -1, nx = 0;  // tok -1: this lane writes nothing
+    float xv = 0.f;
+    if (threadIdx.x < 32) {
+      const int node = nodes[row];
+      const Member<STACKED, Edge> mem(t, row);
+      const int start = mem.rp[node];
+      const int n_real = max(0, min(mem.rp[node + 1] - start, bmax));
+      const bool real = lane < n_real;
+      const Edge e = real ? mem.edges[start + lane] : Edge{};
+      if constexpr (kDelta<Edge>) {
+        tok = warp_scan(static_cast<int>(e));
+        nx = start + lane + mem.base;
+      } else {
+        tok = e.x;
+        nx = e.y;
       }
-    });
+      if (!real || tok < 0 || tok >= V) tok = -1;
+      if (tok >= 0) xv = x[tok];
+    }
+    const float2 lse = fill_and_lse<FUSED>(x, V, o, on, red);
+    if (tok >= 0) {
+      o[tok] = FUSED ? (xv - lse.x) - lse.y : xv;
+      on[tok] = nx;
+    }
   } else {
-    for (int j = threadIdx.x; j < n_real; j += kThreads) {
-      const int2 e = mem.edges[start + j];
-      if (e.x >= 0 && e.x < V) {
-        o[e.x] = lp(e.x);
-        on[e.x] = e.y;
+    const int node = nodes[row];
+    const Member<STACKED, Edge> mem(t, row);
+    const int start = mem.rp[node];
+    const int n_real = max(0, min(mem.rp[node + 1] - start, bmax));
+    const float2 lse = fill_and_lse<FUSED>(x, V, o, on, red);
+    const auto lp = [&](int col) {
+      return FUSED ? (x[col] - lse.x) - lse.y : x[col];
+    };
+    if constexpr (kDelta<Edge>) {
+      for_each_delta_slot<kMaskThreads>(mem, start, n_real, part,
+                                        [&](int, int tok, int nx) {
+        if (tok >= 0 && tok < V) {
+          o[tok] = lp(tok);
+          on[tok] = nx;
+        }
+      });
+    } else {
+      for (int j = threadIdx.x; j < n_real; j += kMaskThreads) {
+        const int2 e = mem.edges[start + j];
+        if (e.x >= 0 && e.x < V) {
+          o[e.x] = lp(e.x);
+          on[e.x] = e.y;
+        }
       }
     }
   }
@@ -610,10 +805,18 @@ int launch_topk(const Rows& r, const Tables& t) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// A block per row either way; bmax <= kWarpBmax: warp 0 holds the slots.
 template <bool FUSED, bool STACKED, typename Edge>
 int launch_mask(const Rows& r, const Tables& t) {
-  vntk_mask_kernel<FUSED, STACKED, Edge><<<r.nb, kThreads, 0, r.stream>>>(
-      r.values, r.ld, r.nodes, t, r.V, r.bmax, r.out_sc, r.out_next);
+  if (warp_route(r.bmax)) {
+    vntk_mask_kernel<FUSED, STACKED, Edge, true>
+        <<<r.nb, kMaskThreads, 0, r.stream>>>(r.values, r.ld, r.nodes, t, r.V,
+                                               r.bmax, r.out_sc, r.out_next);
+  } else {
+    vntk_mask_kernel<FUSED, STACKED, Edge, false>
+        <<<r.nb, kMaskThreads, 0, r.stream>>>(r.values, r.ld, r.nodes, t, r.V,
+                                               r.bmax, r.out_sc, r.out_next);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -660,6 +863,10 @@ size_t vntk_topk_smem_bytes(int bmax, int width) {
 
 // 1 if rows of bmax slots take the warp route, 0 for the block route.
 int vntk_topk_warp_route(int bmax) { return warp_route(bmax) ? 1 : 0; }
+
+// 1 if the mask kernel holds rows of bmax slots in one warp's registers, 0
+// if it scatters them chunk by chunk.
+int vntk_mask_warp_route(int bmax) { return warp_route(bmax) ? 1 : 0; }
 
 int vntk_topk_launch(const float* values, int64_t ld, const int* nodes,
                      const int* row_pointers, const int* edges, int nb, int V,

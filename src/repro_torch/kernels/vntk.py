@@ -26,7 +26,11 @@ wrapper (fused)                                  replaces (``src/repro/kernels/v
 The topk kernel takes one of two routes by ``bmax`` (:func:`topk_path`): a
 warp per beam row for rows of at most 32 slots, a block per row above; each
 call is one launch either way.  :func:`topk_ranks_closed_form` models the
-warp route's selection on the CPU.
+warp route's selection on the CPU.  The mask kernel is a block per row on
+both of its routes (:func:`mask_path`): for rows of at most 32 slots one
+warp holds them in its lanes while the others fill the row, above that the
+block scatters them chunk by chunk; :func:`row_lse_model` models its fused
+log-sum-exp on the CPU.
 
 A wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, raises on what the kernel does not take, and launches on the
@@ -64,7 +68,7 @@ __all__ = ["LAUNCHES", "counter_name", "reset_launches", "vntk_topk_cuda",
            "vntk_stacked_compressed_mask_cuda", "vntk_compressed_topk_plain",
            "vntk_compressed_mask_plain", "vntk_stacked_compressed_topk_plain",
            "vntk_stacked_compressed_mask_plain", "topk_path",
-           "topk_ranks_closed_form"]
+           "topk_ranks_closed_form", "mask_path", "row_lse_model"]
 
 KERNELS = ("vntk_topk", "vntk_mask", "vntk_stacked_topk", "vntk_stacked_mask",
            "vntk_compressed_topk", "vntk_compressed_mask",
@@ -108,8 +112,9 @@ def _lib() -> ctypes.CDLL:
         getattr(lib, f"{kernel}_launch").restype = ctypes.c_int
     lib.vntk_topk_smem_bytes.argtypes = [i, i]
     lib.vntk_topk_smem_bytes.restype = ctypes.c_size_t
-    lib.vntk_topk_warp_route.argtypes = [i]
-    lib.vntk_topk_warp_route.restype = ctypes.c_int
+    for route in ("vntk_topk_warp_route", "vntk_mask_warp_route"):
+        getattr(lib, route).argtypes = [i]
+        getattr(lib, route).restype = ctypes.c_int
     return lib
 
 
@@ -401,6 +406,13 @@ def topk_path(bmax: int) -> str:
     return "warp" if _lib().vntk_topk_warp_route(int(bmax)) else "block"
 
 
+def mask_path(bmax: int) -> str:
+    """The path the mask kernel takes for rows of ``bmax`` slots, read from
+    the built library: ``"warp"`` (one warp holds the slots in its lanes)
+    or ``"block"`` (the block scatters them chunk by chunk)."""
+    return "warp" if _lib().vntk_mask_warp_route(int(bmax)) else "block"
+
+
 def topk_ranks_closed_form(keys, toks, n_real, bmax: int, width: int,
                            vocab: int):
     """The warp route's selection (``vntk_topk_warp_kernel`` in
@@ -475,3 +487,86 @@ def topk_ranks_closed_form(keys, toks, n_real, bmax: int, width: int,
     if bool((source < 0).any()):
         raise AssertionError("a rank below width was not written")
     return scores, tokens, source
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _exp_le0(d):
+    """``exp_le0`` of ``csrc/vntk.cu``: exp(d) as exp2(d * log2 e), in
+    float32."""
+    return torch.exp2(d * torch.tensor(_LOG2E, dtype=torch.float32))
+
+
+def row_lse_model(x, threads: int = 128, vec: bool = True):
+    """The mask kernel's fused log-sum-exp (``fill_and_lse`` and
+    ``WorkerRowLse`` in ``csrc/vntk.cu``) in plain float32 torch, step for
+    step; no path calls it.
+
+    ``x`` is ``(nb, V)`` logits; ``threads`` the block size (the kernel's
+    is 128), whose warps past the first are the workers; ``vec`` the
+    kernel's 16-byte load path (it takes it when ``V % 4 == 0`` and the row
+    is 16-byte aligned), else scalar loads.  Each worker folds its elements
+    into an online ``(m, s)`` pair from ``m = -FLT_MAX``: batch by batch of
+    8 float4s (the batch's max first, then its exponentials summed as a
+    tree) or element by element.  Each warp merges its 32 pairs (the max,
+    then a butterfly sum of the scaled ``s``), and the warps' pairs merge
+    in warp order.  Returns ``(m, lse)``, each ``(nb,)``: the row's
+    log-probs are ``(x - m) - lse``.
+    """
+    x = x.float()
+    nb, V = x.shape
+    nw = threads - 32
+    if threads % 32 or nw <= 0:
+        raise ValueError(f"threads must be a multiple of 32 above 32, got "
+                         f"{threads}")
+    if vec and V % 4:
+        raise ValueError(f"the 16-byte path needs V % 4 == 0, got V = {V}")
+    minf = torch.finfo(torch.float32).min
+    w = torch.arange(nw)
+    m = torch.full((nb, nw), minf)
+    s = torch.zeros((nb, nw))
+    if vec:
+        batch = 8
+        x4 = torch.cat([x.view(nb, V // 4, 4),
+                        torch.full((nb, 1, 4), -float("inf"))], 1)
+        for b in range(0, max(V // 4, 1), nw * batch):
+            k = b + w[:, None] + nw * torch.arange(batch)[None, :]
+            v = x4[:, k.clamp(max=V // 4)]  # (nb, nw, batch, 4); -inf past V
+            r = v.amax(dim=(2, 3))  # the batch's max (exact in any order)
+            up = r > m
+            s = torch.where(up, s * _exp_le0(m - r), s)
+            m = torch.where(up, r, m)
+            d = _exp_le0(v - m[..., None, None])
+            e = (d[..., 0] + d[..., 1]) + (d[..., 2] + d[..., 3])
+            half = batch // 2
+            while half:  # the tree: e[u] += e[u + half] for u < half
+                e = e[..., :half] + e[..., half:2 * half]
+                half //= 2
+            s = s + e[..., 0]
+    else:
+        for i0 in range(0, V, nw):
+            i = i0 + w
+            live = i < V
+            xi = torch.where(live, x[:, i.clamp(max=V - 1)], minf)
+            up = live & (xi > m)
+            s = torch.where(up, s * _exp_le0(m - xi) + 1.0,
+                            torch.where(live, s + _exp_le0(xi - m), s))
+            m = torch.where(up, xi, m)
+    # each warp: the max of its lanes' m, then a butterfly sum of the s
+    # scaled to it (every lane ends with the same sum)
+    m = m.view(nb, nw // 32, 32)
+    s = s.view(nb, nw // 32, 32)
+    mr = m.amax(-1)
+    t = s * _exp_le0(m - mr[..., None])
+    lane = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        t = t + t[..., lane ^ o]
+    # the block: the warps' pairs in warp order
+    M = mr[:, 0]
+    for q in range(1, nw // 32):
+        M = torch.fmax(M, mr[:, q])
+    S = torch.zeros(nb)
+    for q in range(nw // 32):
+        S = S + t[:, q, 0] * _exp_le0(mr[:, q] - M)
+    return M, torch.log(S)

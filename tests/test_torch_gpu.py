@@ -7,9 +7,12 @@ neither), so they run there with
 
 ``chip_smoke.py`` holds every kernel against its plain version at the
 main paths' shapes; these are the quick checks of the EmbeddingBag
-dispatch and launch counting, for one table and for a group, and of the
-VNTK topk kernel's two routes (a warp per row up to bmax 32, a block per
-row above) for each of its eight instantiations.
+dispatch and launch counting, for one table and for a group, of the VNTK
+topk kernel's two routes (a warp per row up to bmax 32, a block per row
+above) for each of its eight instantiations, and of the VNTK mask kernel's
+two paths (one warp holds the slots up to bmax 32, the block scatters them
+above) for each of its eight, with their 16-byte and scalar loads and
+stores.
 """
 import numpy as np
 import pytest
@@ -127,11 +130,12 @@ def test_grouped_misaligned_view_takes_the_scalar_path(rng):
     assert torch.equal(got, bag.embedding_bag_grouped_plain(tables, ids))
 
 
-def _topk_args(rng, stacked, compressed, bmax, fused, nb=37, V=64):
-    """A topk function's arguments on small tries over V tokens (dense_d =
+def _vntk_args(rng, stacked, compressed, bmax, fused, nb=37, V=64,
+               topk=True):
+    """A VNTK function's arguments on small tries over V tokens (dense_d =
     0; two as a store when ``stacked``): rows at the sink, at the root (V
     children) and on level 1 (~30-40 children at V = 64), logits or
-    log-probs with columns at NEG_INF and -inf, width V."""
+    log-probs with columns at NEG_INF and -inf; width V for topk."""
     fts = [build_flat_trie(rng.integers(0, V, (n, 3)), V, dense_d=0)
            for n in (3000, 1500)[:2 if stacked else 1]]
     mats = [TransitionMatrix.from_flat_trie(f, device="cuda") for f in fts]
@@ -153,7 +157,18 @@ def _topk_args(rng, stacked, compressed, bmax, fused, nb=37, V=64):
         csr = [tables.row_pointers, slab.tok_delta, slab.base_for_step(1)]
     else:
         csr = [tables.row_pointers, tables.edges]
-    return head + csr + [bmax, V, V, fused]
+    return head + csr + [bmax, V] + ([V] if topk else []) + [fused]
+
+
+def _launch_once(kernel, fused, args):
+    """The kernel's outputs and its plain version's; one launch between."""
+    name = kv.counter_name(kernel, fused)
+    n = kv.LAUNCHES[name]
+    got = getattr(kv, f"{kernel}_cuda")(*args)
+    assert kv.LAUNCHES[name] == n + 1
+    want = getattr(kv, f"{kernel}_plain")(*args)
+    assert kv.LAUNCHES[name] == n + 1
+    return got, want
 
 
 @pytest.mark.gpu
@@ -168,14 +183,9 @@ def test_topk_routes_equal_plain_on_the_card(rng, kernel, fused, bmax, path):
     states exactly, scores exactly or, fused, within 1e-5)."""
     _card()
     assert kv.topk_path(bmax) == path
-    args = _topk_args(rng, "stacked" in kernel, "compressed" in kernel, bmax,
+    args = _vntk_args(rng, "stacked" in kernel, "compressed" in kernel, bmax,
                       fused)
-    name = kv.counter_name(kernel, fused)
-    n = kv.LAUNCHES[name]
-    got = getattr(kv, f"{kernel}_cuda")(*args)
-    assert kv.LAUNCHES[name] == n + 1
-    want = getattr(kv, f"{kernel}_plain")(*args)
-    assert kv.LAUNCHES[name] == n + 1
+    got, want = _launch_once(kernel, fused, args)
     for g, w in zip(got[1:], want[1:]):
         assert torch.equal(g, w)
     if fused:
@@ -193,7 +203,7 @@ def test_topk_warp_route_reads_unaligned_logit_rows(rng, kernel):
     the warp route's scalar loads, equal to the plain version."""
     _card()
     for offset, V in ((1, 64), (0, 62)):
-        args = _topk_args(rng, "stacked" in kernel, "compressed" in kernel, 32,
+        args = _vntk_args(rng, "stacked" in kernel, "compressed" in kernel, 32,
                           True, V=V)
         wide = torch.full((args[0].shape[0], V + offset), -3.0,
                           device="cuda")
@@ -204,3 +214,47 @@ def test_topk_warp_route_reads_unaligned_logit_rows(rng, kernel):
         for g, w in zip(got[1:], want[1:]):
             assert torch.equal(g, w)
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+def _assert_mask_equal(got, want, fused):
+    """Next states exactly; scores exactly or, fused, within 1e-5."""
+    assert torch.equal(got[1], want[1])
+    if fused:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got[0], want[0])
+
+
+MASKS = ["vntk_mask", "vntk_stacked_mask", "vntk_compressed_mask",
+         "vntk_stacked_compressed_mask"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kernel", MASKS)
+@pytest.mark.parametrize("bmax,path", [(32, "warp"), (33, "block")])
+def test_mask_paths_equal_plain_on_the_card(rng, kernel, fused, bmax, path):
+    """Rows cut at bmax = 32 are held by one warp, at 33 scattered by the
+    block: each launches once and equals the plain version."""
+    _card()
+    assert kv.mask_path(bmax) == path
+    args = _vntk_args(rng, "stacked" in kernel, "compressed" in kernel, bmax,
+                      fused, topk=False)
+    _assert_mask_equal(*_launch_once(kernel, fused, args), fused)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", MASKS)
+def test_mask_reads_unaligned_logit_rows(rng, kernel):
+    """Fused logit rows 4 bytes off a 16-byte boundary (the scalar loads)
+    and V % 4 != 0 (scalar loads and the scalar fill), on both paths."""
+    _card()
+    for offset, V, fused in ((1, 64, True), (0, 62, True), (0, 62, False)):
+        for bmax in (32, 33):
+            args = _vntk_args(rng, "stacked" in kernel, "compressed" in kernel,
+                              bmax, fused, V=V, topk=False)
+            wide = torch.full((args[0].shape[0], V + offset), -3.0,
+                              device="cuda")
+            wide[:, offset:] = args[0]
+            args[0] = wide[:, offset:]
+            _assert_mask_equal(*_launch_once(kernel, fused, args), fused)
