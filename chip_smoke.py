@@ -60,8 +60,10 @@ Phases (any failure raises and the script exits non-zero):
               fused; topk width 8) is printed.
               The golden traces of ``tests/golden`` (``stacked`` included)
               are replayed through the kernels, with and without the
-              compressed slab, and the bf16 attention products on the card
-              are held against the CPU's.
+              compressed slab, and the §5.2 baselines' (``ppv_exact``,
+              ``cpu_trie``, ``hash_bitmap``) with their tables on the card;
+              the bf16 attention products on the card are held against the
+              CPU's.
 4. single   — ``static_gr.CONFIG`` (26 layers, d_model 3072, GQA 24/8, bf16)
               with seeded random weights serving B=2 requests of 256-token
               histories at M=70, L=8 through ``GenerativeRetriever.retrieve``
@@ -87,7 +89,45 @@ Phases (any failure raises and the script exits non-zero):
               swap of a re-aged ``fresh_22`` under the default and the
               compressed policy must be reported hot and keep row 0
               compliant with the new set.
-6. bag      — the retrieval phases' tensors released, the EmbeddingBag
+6. table1   — the paper's Table 1 baselines (§5.2) beside STATIC, while
+              the catalog trie, the store and the model are on the card:
+              DISC-PPV's sorted table of the whole catalog (exact, and
+              approximate over the top 50), the hash bitmap of every prefix
+              (2^27 bits, built on the card), the CPU trie over a seeded
+              200,000-SID subset (a nested-dict trie of the 20M catalog does
+              not fit the run; the reference's Table 1 cuts it the same way,
+              ``benchmarks/table1_latency.py:133``) beside STATIC over a trie
+              of the same subset, and the unconstrained step.  (a) Per step,
+              as in Table 1: nb = 140 rows (B = 2 x M = 70), seeded logits,
+              nodes and prefixes walked down catalog SIDs; each policy's
+              Phase 1-2 call (``static``, ``static_fused``, ``static_dense``,
+              ``stacked`` with every row on ``fresh_90``, whose set is the
+              whole catalog, the baselines, ``unconstrained``, and
+              ``static`` through ``step_topk`` at its sparse levels) timed at
+              each level in CUDA graphs between CUDA events, and also eager
+              (host dispatch included); the CPU trie by a host clock around
+              a synchronized call.  Overhead per level is the median minus
+              the median of the log-softmax alone (clamped at 0, the
+              Appendix C rule); the mean over the 8 levels and the worst
+              level are reported.  At every level ``ppv_exact``'s and
+              ``stacked``'s valid sets must equal ``static``'s, the CPU
+              trie's STATIC's over the same subset, ``ppv_approx``'s lie
+              within ``ppv_exact``'s, the bitmap's contain ``static``'s, and
+              ``unconstrained`` must return the log-softmax unchanged.  (b)
+              static-gr-3b on phase 4's batches under ``ppv_exact``,
+              ``ppv_approx``, ``hash_bitmap``, ``unconstrained`` and
+              ``cpu_trie``, in turns with ``static`` batch by batch: PPV
+              exact and the CPU trie must give SIDs and
+              scores bit-equal to their STATIC twins' (phase 4's over the
+              catalog; over the subset for the CPU trie), topk and
+              vocab-aligned plans alike; every live beam of PPV approximate
+              must be in the catalog; the bitmap's compliance share and
+              false-positive rate are printed; no VNTK kernel may launch
+              (the counters are zeroed just before and read just after).
+              One ``{"table1": ...}`` JSON line carries the overheads (ms),
+              the ratios of ``cpu_trie``, ``ppv_exact``, ``ppv_approx`` and
+              ``hash_bitmap`` to ``static``, and each median retrieve ms.
+7. bag      — the retrieval phases' tensors released, the EmbeddingBag
               kernel (``csrc/embedding_bag.cu``) against its plain version
               on the card.  Single-table entry: the reference's sweep ((B,
               K, D) in (8, 1, 32), (16, 4, 128), (5, 7, 64); float32 and
@@ -111,7 +151,7 @@ Phases (any failure raises and the script exits non-zero):
               the library yardstick (``F.embedding_bag``; for a group, its
               per-table calls in one CUDA graph; used nowhere in the port)
               are timed at the path's shapes as in phase 3.
-7. recsys   — wide-deep at its published size (40 tables of 32 floats and
+8. recsys   — wide-deep at its published size (40 tables of 32 floats and
               40 wide tables, 111,104,000 padded rows, 14.7 GB, seeded on the
               card) through ``recsys.forward`` at the reference's
               ``serve_p99`` (B = 512) and ``serve_bulk`` (B = 262,144)
@@ -126,7 +166,7 @@ Phases (any failure raises and the script exits non-zero):
               published size (10M x 64 items) at ``retrieval_cand`` (1M
               candidates, no bag launch): finite scores.  The phase's peak
               device memory is printed.
-8. report   — the card's ``nvidia-smi`` name and power limit, one JSON line
+9. report   — the card's ``nvidia-smi`` name and power limit, one JSON line
               with a row per kernel function (a VNTK row with the ``path``
               its main-path levels took, ``warp`` or ``block``, for topk
               and mask alike; for the bag,
@@ -794,7 +834,8 @@ def phase_stacked_kernels(rng, idx, M, checks, full_size):
 
 
 def phase_golden():
-    """Replay tests/golden through the kernels: trace tokens must equal the
+    """Replay tests/golden through the kernels, and the §5.2 baselines'
+    traces with their tables on the card: trace tokens must equal the
     frozen reference traces and scores agree within rtol 1e-6 (1e-5 when
     the kernel normalizes)."""
     from repro_torch.constraints import ConstraintStore
@@ -818,6 +859,22 @@ def phase_golden():
         return table[step][last.long()], carry
 
     ones = np.ones(B, np.int32)
+    sids = inputs["sids"]
+    for name, policy in (  # regenerate.py's baselines, tables on the card
+            ("ppv_exact", DecodePolicy.ppv(sids, V, exact=True)),
+            ("cpu_trie", DecodePolicy.cpu_trie(sids, V)),
+            ("hash_bitmap", DecodePolicy.hash_bitmap(sids, V, log2_bits=22))):
+        for topk in (True, False):  # no candidate step: both vocab-aligned
+            _, _, tr = beam_search(logits_fn, None, B, M, L,
+                                   policy.with_topk(topk), return_trace=True,
+                                   device="cuda")
+            label = f"golden {name} topk={topk}"
+            if not np.array_equal(tr.tokens.cpu().numpy(),
+                                  traces[f"{name}_trace_tokens"]):
+                raise AssertionError(f"{label}: trace tokens")
+            np.testing.assert_allclose(tr.scores.cpu().numpy(),
+                                       traces[f"{name}_trace_scores"],
+                                       err_msg=label, rtol=1e-6)
     for compressed in (False, True):
         for name, policy, trace, cids in (
                 ("static", DecodePolicy.static(tm, compressed=compressed),
@@ -848,7 +905,8 @@ def phase_golden():
                                            err_msg=label, **tol)
     log("  golden traces static/static_fused/static_d0/stacked (and stacked "
         "through the fused kernels; topk and dense advance; without and with "
-        "the compressed slab) reproduced through the kernels")
+        "the compressed slab) reproduced through the kernels; ppv_exact/"
+        "cpu_trie/hash_bitmap on the card")
 
 
 def phase_attention(rng):
@@ -1061,7 +1119,7 @@ def phase_single(args, rng, params, cfg, idx):
                                     beam_size=M)
             log(f"  profile of {name}:")
             profile_retrieve(lambda: r.retrieve(hists[1]), median_ms[name])
-    return launches
+    return launches, dict(params=params, cfg=cfg, hists=hists, first=first)
 
 
 def phase_stacked(args, rng, params, cfg, idx):
@@ -1219,7 +1277,298 @@ def profile_retrieve(retrieve, retrieve_ms, kernel="vntk"):
 
 
 # ---------------------------------------------------------------------------
-# phases 6-7: the EmbeddingBag kernel and the recsys path
+# phase 6: the paper's Table 1 baselines (§5.2) beside STATIC
+# ---------------------------------------------------------------------------
+TRIE_SIDS = 200_000  # the CPU trie's cut (benchmarks/table1_latency.py:133)
+STEP_CALLS, STEP_REPS = 20, 7  # Phase 1-2 calls per sample, samples
+
+
+def step_ms(fn, mode) -> float:
+    """Median ms per call of ``fn()`` over ``STEP_REPS`` samples.
+
+    ``graph``: ``STEP_CALLS`` calls captured in a CUDA graph, replayed
+    between CUDA events (device time, no host dispatch); ``eager``: the
+    calls issued from Python between CUDA events (host dispatch included
+    wherever it is the longer); ``host``: a host clock around one call and
+    a synchronize (the CPU trie, whose host round trip no graph holds)."""
+    if mode == "graph":
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(STEP_CALLS):
+                fn()
+        run = graph.replay
+    else:
+        def run():
+            for _ in range(1 if mode == "host" else STEP_CALLS):
+                fn()
+    run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    samples = []
+    for _ in range(STEP_REPS):
+        if mode == "host":
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+            continue
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / STEP_CALLS)
+    return float(np.median(samples))
+
+
+def walk(policy, sids, rng, nb, L, V):
+    """``nb`` catalog SIDs as prefixes, and the trie node STATIC reaches on
+    each at every level (``benchmarks/table1_latency.py``'s
+    ``_walk_nodes_and_prefixes``)."""
+    prefixes = torch.from_numpy(
+        sids[rng.integers(0, sids.shape[0], nb)].astype(np.int32)).cuda()
+    rows = torch.arange(nb, device="cuda")
+    nodes = [torch.ones(nb, dtype=torch.int32, device="cuda")]
+    for t in range(L - 1):
+        _, nxt = policy.step(torch.zeros(nb, V, device="cuda"), nodes[-1], t,
+                             normalized=True)
+        nodes.append(nxt[rows, prefixes[:, t].long()])
+    if not all(bool((n > 0).all()) for n in nodes):
+        raise AssertionError("a walked catalog SID left the trie")
+    return prefixes, nodes
+
+
+def baseline_policies(rng, idx):
+    """The Table 1 policies over the catalog (the CPU trie over a seeded
+    ``TRIE_SIDS`` subset, with a STATIC twin over the same subset)."""
+    from repro_torch.configs import static_gr
+    from repro_torch.core.baselines import PPVBaseline
+    from repro_torch.core.transition_matrix import TransitionMatrix
+    from repro_torch.decoding import DecodePolicy, PPVBackend, as_policy
+
+    V, d = static_gr.SID_VOCAB, static_gr.DENSE_D
+    sids = idx["sids"]
+    t0 = time.time()
+    exact = PPVBackend.from_baseline(PPVBaseline(sids, V, device="cuda"))
+    ppv = {"ppv_exact": as_policy(exact),  # approx shares exact's tables
+           "ppv_approx": as_policy(dataclasses.replace(exact, exact=False,
+                                                       top_k=50))}
+    torch.cuda.synchronize()
+    log(f"  PPV table of {exact.n} SIDs ({exact.n_search_steps} search "
+        f"rounds): {(exact.sids_sorted.nbytes + exact.keys.nbytes) / 1e9:.3f}"
+        f" GB on the card ({time.time() - t0:.1f}s)")
+    t0 = time.time()
+    bitmap = DecodePolicy.hash_bitmap(sids, V, log2_bits=27, device="cuda")
+    bits = bitmap.backends[0].bitmap
+    ones = torch.tensor([bin(b).count("1") for b in range(256)],
+                        device="cuda")
+    set_share = float(ones[bits.long()].sum()) / (bits.numel() * 8)
+    log(f"  hash bitmap of every prefix: 2^27 bits, {set_share:.3f} of them "
+        f"set, built on the card in {time.time() - t0:.1f}s")
+    t0 = time.time()
+    n_cut = min(TRIE_SIDS, sids.shape[0])
+    cut = sids[np.sort(rng.choice(sids.shape[0], n_cut, replace=False))]
+    trie = DecodePolicy.cpu_trie(cut, V)
+    tm_cut = TransitionMatrix.from_sids(cut, V, dense_d=d, device="cuda")
+    log(f"  CPU trie and STATIC trie of a seeded {n_cut}-SID subset "
+        f"({tm_cut.n_states} states) in {time.time() - t0:.1f}s")
+    return dict(ppv, hash_bitmap=bitmap, cpu_trie=trie,
+                unconstrained=DecodePolicy.unconstrained()), cut, tm_cut
+
+
+def phase_table1(rng, idx, policies, cut, tm_cut):
+    """Table 1 per step: each policy's Phase 1-2 call at each level over
+    the same logits, with the checks of every level; returns the
+    ``table1`` dict of overheads (ms, mean over levels and worst level)."""
+    from repro_torch.configs import static_gr
+    from repro_torch.core.vntk import NEG_INF
+    from repro_torch.decoding import DecodePolicy
+
+    V, L, M = static_gr.SID_VOCAB, static_gr.SID_LENGTH, static_gr.BEAM_SIZE
+    nb = 2 * M  # B = 2 requests of M beams
+    tm, store = idx["tm"], idx["store"]
+    static = DecodePolicy.static(tm)
+    timed = {
+        "static": static,
+        "static_fused": DecodePolicy.static(tm, fused=True),
+        "static_dense": DecodePolicy.static(tm, topk=False),
+        "stacked": DecodePolicy.stacked(store),
+        **policies,
+    }
+    static_cut = DecodePolicy.static(tm_cut)
+    prefixes, nodes = walk(static, idx["sids"], rng, nb, L, V)
+    cut_prefixes, cut_nodes = walk(static_cut, cut, rng, nb, L, V)
+    fresh_90 = torch.full((nb,), list(SLOTS).index("fresh_90"),
+                          dtype=torch.int32, device="cuda")  # every SID
+    logits = torch.from_numpy(rng.normal(size=(nb, V)).astype(
+        np.float32)).cuda()
+    base = {mode: step_ms(lambda: torch.log_softmax(logits, -1), mode)
+            for mode in ("graph", "eager")}
+
+    def call(name, step):
+        policy = timed[name]
+        on_cut = name == "cpu_trie"
+        return lambda: policy.step(
+            logits, (cut_nodes if on_cut else nodes)[step], step,
+            prefix_tokens=(cut_prefixes if on_cut else prefixes)
+            if policy.needs_prefix else None,
+            constraint_ids=fresh_90 if name == "stacked" else None)
+
+    def valid(out):
+        return out[0] > NEG_INF / 2
+
+    per_level = {name: {"graph": [], "eager": []} for name in timed}
+    per_level["static_topk"] = {"graph": [], "eager": []}
+    for step in range(L):
+        out = {name: call(name, step)() for name in timed}
+        want = valid(out["static"])
+        cut_want = valid(static_cut.step(logits, cut_nodes[step], step))
+        checks = {
+            "ppv_exact == static": torch.equal(valid(out["ppv_exact"]), want),
+            "stacked(fresh_90) == static": torch.equal(valid(out["stacked"]),
+                                                       want),
+            "static_fused == static": torch.equal(valid(out["static_fused"]),
+                                                  want),
+            "cpu_trie == static(200k)": torch.equal(valid(out["cpu_trie"]),
+                                                    cut_want),
+            "ppv_approx in ppv_exact": not bool(
+                (valid(out["ppv_approx"]) & ~valid(out["ppv_exact"])).any()),
+            "hash_bitmap contains static": not bool(
+                (want & ~valid(out["hash_bitmap"])).any()),
+            "unconstrained == log_softmax": torch.equal(
+                out["unconstrained"][0], torch.log_softmax(logits, -1)),
+        }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"table1 level {step}: {bad}")
+        for name in timed:
+            host = step_ms(call(name, step), "host") if (
+                name == "cpu_trie") else None
+            for mode in ("graph", "eager"):
+                ms = host if host is not None else step_ms(call(name, step),
+                                                           mode)
+                per_level[name][mode].append(ms - base[mode])
+        if static.supports_topk_at(step):
+            C = static.candidate_width(M, step)
+            for mode in ("graph", "eager"):
+                per_level["static_topk"][mode].append(step_ms(
+                    lambda: static.step_topk(logits, nodes[step], step, C),
+                    mode) - base[mode])
+    log(f"  every level: ppv_exact and stacked(fresh_90) valid sets equal "
+        f"static's, cpu_trie equals static over the {len(cut)}-SID trie, "
+        "ppv_approx within ppv_exact, hash_bitmap contains static, "
+        "unconstrained returns the log-softmax unchanged")
+    table = {"nb": nb, "V": V, "L": L, "n_sids": int(idx["sids"].shape[0]),
+             "cpu_trie_sids": len(cut),
+             "log_softmax_ms": base,
+             "overhead_ms": {}, "worst_level_ms": {}, "eager_overhead_ms": {},
+             "levels": {}}
+    for name, t in per_level.items():
+        over = [max(x, 0.0) for x in t["graph"]]  # the Appendix C rule
+        table["overhead_ms"][name] = float(np.mean(over))
+        table["worst_level_ms"][name] = float(np.max(over))
+        table["eager_overhead_ms"][name] = float(np.mean(
+            [max(x, 0.0) for x in t["eager"]]))
+        table["levels"][name] = [round(x, 6) for x in t["graph"]]
+        log(f"  {name:14s} overhead {table['overhead_ms'][name] * 1e3:10.2f} "
+            f"us (worst level {table['worst_level_ms'][name] * 1e3:10.2f}; "
+            f"eager {table['eager_overhead_ms'][name] * 1e3:10.2f})")
+    ref = table["overhead_ms"]["static"]
+    table["ratio_to_static"] = {
+        name: (table["overhead_ms"][name] / ref if ref > 0 else None)
+        for name in ("cpu_trie", "ppv_exact", "ppv_approx", "hash_bitmap")}
+    return table
+
+
+def phase_baseline_retrieve(single, policies, idx, tm_cut, table,
+                            probe_seed):
+    """static-gr-3b over the catalog under each baseline, on phase 4's
+    batches in turns with STATIC: PPV exact and the CPU trie must equal their STATIC twins bit
+    for bit (topk and vocab-aligned plans), PPV approximate keep every live
+    beam in the catalog; no VNTK kernel may launch.  The bitmap's
+    false-positive probes are drawn from ``probe_seed``, not the catalog's
+    seed, whose first draws are the catalog itself."""
+    from repro_torch.configs import static_gr
+    from repro_torch.decoding import DecodePolicy
+    from repro_torch.kernels import vntk as kv
+    from repro_torch.launch.serve import compliance
+    from repro_torch.serving import GenerativeRetriever
+
+    L, V, M = static_gr.SID_LENGTH, static_gr.SID_VOCAB, static_gr.BEAM_SIZE
+    params, cfg, hists, first = (single[k] for k in ("params", "cfg", "hists",
+                                                     "first"))
+    B = hists[0].shape[0]
+    log(f"  {cfg.name}: {cfg.n_layers} layers, B={B}, M={M}, L={L}, phase "
+        "4's batches")
+
+    def retriever(policy):
+        return GenerativeRetriever(params, cfg, policy, L, V, beam_size=M)
+
+    twins = {"cpu_trie": {  # STATIC over the same subset
+        plan: retriever(DecodePolicy.static(tm_cut, topk=topk)).retrieve(
+            hists[0]) for plan, topk in (("topk", True), ("notopk", False))},
+        "ppv_exact": {"topk": first["static"], "notopk": first["static_notopk"]}}
+    # in turns with STATIC over the catalog, batch by batch, so the
+    # retrieve times share the card's state
+    runners = {"static": retriever(DecodePolicy.static(idx["tm"]))}
+    runners.update((name, retriever(p)) for name, p in policies.items())
+    out, lat = {}, {name: [] for name in runners}
+    for i, hist in enumerate(hists):
+        for name, r in runners.items():
+            kv.reset_launches()  # this retrieve's run starts here
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            beams, scores = r.retrieve(hist)
+            if i:
+                lat[name].append(time.perf_counter() - t0)
+            else:
+                out[name] = (beams, scores)
+            launched = {k: v for k, v in kv.LAUNCHES.items() if v}  # ends
+            if name != "static" and launched:
+                raise AssertionError(f"{name}: a VNTK kernel launched under "
+                                     f"a baseline: {launched}")
+            check_batch(name, beams, scores, (B, M, L))
+    median_ms = {name: float(np.median(t)) * 1e3 for name, t in lat.items()}
+    for name, plans in twins.items():
+        for plan, (beams, scores) in plans.items():
+            if not (np.array_equal(out[name][0], beams)
+                    and np.array_equal(out[name][1], scores)):
+                raise AssertionError(f"{name}: SIDs or scores differ from "
+                                     f"its STATIC twin ({plan})")
+    # the top 50 of 2048 tokens often miss a deep prefix's few children, so
+    # approximate PPV may leave no beam alive; those it keeps must be valid
+    approx_in, approx_live = compliance(idx["sorted_sids"], *out["ppv_approx"])
+    if approx_in != approx_live:
+        raise AssertionError(f"ppv_approx: {approx_in}/{approx_live} live "
+                             "beams in the catalog")
+    members, live = compliance(idx["sorted_sids"], *out["hash_bitmap"])
+    t0 = time.time()
+    fpr = policies["hash_bitmap"].backends[0].false_positive_rate(
+        idx["sids"], seed=probe_seed)
+    table["retrieve_ms"] = median_ms
+    table["ppv_approx_live_beams"] = approx_live
+    table["hash_bitmap_compliance"] = members / max(live, 1)
+    table["hash_bitmap_false_positive_rate"] = fpr
+    for name, ms in median_ms.items():
+        log(f"  {name} [{runners[name].policy.describe()}]: median retrieve "
+            f"{ms:.2f} ms over {len(hists) - 1} batches")
+    log(f"  ppv_exact and cpu_trie SIDs and scores bit-equal to their STATIC "
+        f"twins (topk and vocab-aligned plans; cpu_trie against STATIC over "
+        f"its {tm_cut.n_constraints}-SID subset); ppv_approx {approx_live} "
+        f"of {B * M} beams live, all in the catalog; hash_bitmap "
+        f"{members}/{live} live beams in the catalog, false-positive rate "
+        f"{fpr:.4f} ({time.time() - t0:.1f}s); no VNTK launch under any "
+        "baseline")
+
+
+# ---------------------------------------------------------------------------
+# phases 7-8: the EmbeddingBag kernel and the recsys path
 # ---------------------------------------------------------------------------
 BAG_SOURCE = "src/repro_torch/kernels/csrc/embedding_bag.cu"
 BAG_REPLACES = "src/repro/kernels/embedding_bag.py:51"
@@ -1706,29 +2055,39 @@ def main() -> int:
         f"{cfg.param_count() / 1e9:.2f}B params in {cfg.dtype} "
         f"({time.time() - t0:.1f}s init)")
     log("phase 4: single-matrix path")
-    launches = phase_single(args, rng, params, cfg, idx)
+    launches, single = phase_single(args, rng, params, cfg, idx)
     log("phase 5: stacked path")
     stacked = phase_stacked(args, rng, params, cfg, idx)
     launches.update({k: v for k, v in stacked.items() if "stacked" in k})
-    peaks = [torch.cuda.max_memory_allocated()]  # phases 1-5
-    del idx, params
+    log("phase 6: Table 1 baselines beside STATIC")
+    t0 = time.time()
+    table_rng = np.random.default_rng([args.seed, 6])  # later phases unmoved
+    policies, cut, tm_cut = baseline_policies(table_rng, idx)
+    table1 = phase_table1(table_rng, idx, policies, cut, tm_cut)
+    phase_baseline_retrieve(single, policies, idx, tm_cut, table1,
+                            probe_seed=args.seed + 1)
+    table1["seconds"] = time.time() - t0
+    print(json.dumps({"table1": table1}), flush=True)
+    log(f"  phase 6 took {table1['seconds']:.1f}s")
+    peaks = [torch.cuda.max_memory_allocated()]  # phases 1-6
+    del idx, params, single, policies, tm_cut
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"phase 6: embedding bag kernel vs plain version (retrieval state "
+    log(f"phase 7: embedding bag kernel vs plain version (retrieval state "
         f"released: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
     torch.cuda.reset_peak_memory_stats()
     bag_rows = phase_bag_kernel(args.seed)
     peaks.append(torch.cuda.max_memory_allocated())
-    log(f"  phase 6 peak device memory {peaks[-1] / 1e9:.1f} GB")
-    log("phase 7: recsys path")
+    log(f"  phase 7 peak device memory {peaks[-1] / 1e9:.1f} GB")
+    log("phase 8: recsys path")
     torch.cuda.reset_peak_memory_stats()
     bag_launches = phase_recsys(args, rng)
     peaks.append(torch.cuda.max_memory_allocated())
-    log(f"  phase 7 peak device memory {peaks[-1] / 1e9:.1f} GB")
+    log(f"  phase 8 peak device memory {peaks[-1] / 1e9:.1f} GB")
 
     peak = max(peaks)
-    log(f"phase 8: report ({time.time() - t_start:.1f}s total; peak device "
+    log(f"phase 9: report ({time.time() - t_start:.1f}s total; peak device "
         f"memory {peak / 1e9:.1f} GB)")
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",

@@ -1,4 +1,5 @@
-"""Move the reference package's parameters, tries and stores into the port.
+"""Move the reference package's parameters, tries, stores and §5.2 baseline
+tables into the port.
 
 The helpers take host arrays, never JAX objects: the caller converts with
 ``jax.tree.map(np.asarray, params)`` (or ``np.asarray`` per field), so the
@@ -14,11 +15,13 @@ from repro_torch.configs.base import RecsysConfig, TransformerConfig
 from repro_torch.constraints.store import _LEAF_FIELDS, ConstraintStore
 from repro_torch.core.compressed_slab import CompressedSlab
 from repro_torch.core.transition_matrix import TransitionMatrix
+from repro_torch.decoding.backends import HashBitmapBackend, PPVBackend
 from repro_torch.models.transformer import check_supported, torch_dtype
 
 __all__ = ["params_from_jax", "recsys_params_from_jax",
            "transition_matrix_from_numpy", "store_from_numpy",
-           "slab_from_numpy"]
+           "slab_from_numpy", "ppv_backend_from_numpy",
+           "hash_bitmap_backend_from_numpy"]
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -104,3 +107,27 @@ def slab_from_numpy(slab, device=None) -> CompressedSlab:
         tok_delta=torch.from_numpy(np.array(slab.tok_delta)).to(dev),
         level_base=torch.from_numpy(np.array(slab.level_base)).to(dev),
         vocab_size=int(slab.vocab_size), sid_length=int(slab.sid_length))
+
+
+def ppv_backend_from_numpy(ppv, device=None) -> PPVBackend:
+    """A port :class:`PPVBackend` from the tables of the reference's
+    ``PPVBaseline`` or ``PPVBackend``: ``sids_sorted`` as int32 and the
+    uint32 ``keys`` held as int64."""
+    dev = resolve_device(device)
+    return PPVBackend(
+        sids_sorted=torch.from_numpy(
+            np.asarray(ppv.sids_sorted).astype(np.int32)).to(dev),
+        keys=torch.from_numpy(np.asarray(ppv.keys).astype(np.int64)).to(dev),
+        n=int(ppv.n), vocab_size=int(ppv.vocab_size),
+        sid_length=int(ppv.sid_length), exact=bool(ppv.exact),
+        top_k=int(ppv.top_k), n_search_steps=int(ppv.n_search_steps))
+
+
+def hash_bitmap_backend_from_numpy(bmp, device=None) -> HashBitmapBackend:
+    """A port :class:`HashBitmapBackend` from the uint8 ``bitmap`` of the
+    reference's ``HashBitmapBaseline`` or ``HashBitmapBackend``."""
+    return HashBitmapBackend(
+        bitmap=torch.from_numpy(np.array(bmp.bitmap, dtype=np.uint8)).to(
+            resolve_device(device)),
+        vocab_size=int(bmp.vocab_size), sid_length=int(bmp.sid_length),
+        log2_bits=int(bmp.log2_bits))

@@ -1,7 +1,8 @@
 """Batched constrained beam search over Semantic IDs (paper §3.2 + Alg. 1).
 
 Counterpart of ``repro.core.beam_search``: per batch element the ``M`` best
-prefixes, their cumulative log-probs and per-beam trie states, advanced by a
+prefixes, their cumulative log-probs and per-beam constraint states (trie
+nodes for STATIC, the emitted tokens for the §5.2 baselines), advanced by a
 :class:`~repro_torch.decoding.DecodePolicy`.  The decoder is
 ``logits_fn(carry, last_tokens, step) -> (logits, carry)``.
 
@@ -61,11 +62,15 @@ def beam_search(
     first_logits: Optional[torch.Tensor] = None,
     constraint_ids=None,
     return_trace: bool = False,
+    device=None,
 ):
     """Run ``length`` constrained decode steps; beams come out score-sorted.
 
     ``first_logits`` (B, V) stands in for step 0 (the prefill's last
-    position).  The state lives on the constraint matrix's device.
+    position).  The state lives on ``first_logits``' device when it is
+    given, else on the device of the tables the policy holds, else on
+    ``device``; a policy without tables (the host trie, the unconstrained
+    step) and no ``first_logits`` needs ``device``.
     ``carry_gather_fn`` reorders the carry after every step that another
     step follows; after the last step no logits are read, so the returned
     carry is not reordered for it.
@@ -86,7 +91,14 @@ def beam_search(
         raise ValueError(
             "constraint_ids requires a stacked ConstraintStore policy")
     B, M = batch_size, beam_size
-    device = policy.constraints.device
+    if first_logits is not None:
+        device = first_logits.device
+    elif policy.device is not None:
+        device = policy.device
+    elif device is None:
+        raise ValueError(
+            f"[{policy.describe()}] holds no device tables: pass "
+            "first_logits or device=")
     state = _init_state(B, M, length, device)
     cids_bm = (None if constraint_ids is None else torch.as_tensor(
         constraint_ids, dtype=torch.int32, device=device)[:, None].expand(B, M))
@@ -113,8 +125,9 @@ def beam_search(
             token = c_tok.reshape(B, M * C).gather(1, top_idx)
             new_nodes = c_next.reshape(B, M * C).gather(1, top_idx)
         else:
-            lp, next_dense = policy.step(logits, state.nodes, step,
-                                         constraint_ids=cids_bm)
+            lp, next_dense = policy.step(
+                logits, state.nodes, step, constraint_ids=cids_bm,
+                prefix_tokens=state.tokens if policy.needs_prefix else None)
             total = state.scores[:, :, None] + lp  # (B, M, V)
             top_scores, top_idx = top_m(total.reshape(B, M * V), M)
             beam_idx = top_idx // V

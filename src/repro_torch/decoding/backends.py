@@ -1,16 +1,20 @@
-"""STATIC constraint backends: one :class:`TransitionMatrix`, or a stacked
-multi-tenant :class:`~repro_torch.constraints.ConstraintStore`.
+"""Constraint backends: STATIC over one :class:`TransitionMatrix` or a
+stacked multi-tenant :class:`~repro_torch.constraints.ConstraintStore`, and
+the paper's §5.2 baselines.
 
-Counterparts of ``repro.decoding.backends.StaticBackend`` and
-``StackedStaticBackend`` (without the level-free mask, which is not ported
-yet).  A backend masks one decode step
+Counterparts of ``repro.decoding.backends`` (without the level-free mask and
+``shardings``, which are not ported yet).  A backend masks one decode step
 and reports, vocab-aligned, where each token emission leads (DESIGN.md
 §3.1), or — on candidate-compressed levels — each beam's dense-rank top-C
 ``(scores, tokens, next_states)`` (DESIGN.md §8).  The stacked backend keys
 every lookup on per-row ``constraint_ids`` (DESIGN.md §4).  With a
 delta-compressed ``slab`` (DESIGN.md §11) every sparse lookup reads the
 slab's token deltas instead of the ``(token, next)`` pairs, with equal
-outputs.
+outputs.  The baseline backends mask by each beam's emitted tokens
+(``prefix_tokens``, ``needs_prefix``) and have no fused or candidate step.
+
+``device`` is the device of the tables a backend holds, or ``None`` for
+the host trie and the unconstrained step, which hold none.
 """
 from __future__ import annotations
 
@@ -21,12 +25,19 @@ import torch
 
 from repro_torch.constraints.store import ConstraintStore
 from repro_torch.core import dense_mask
+from repro_torch.core.baselines import (
+    CpuTrieBaseline,
+    HashBitmapBaseline,
+    PPVBaseline,
+)
 from repro_torch.core.compressed_slab import CompressedSlab
 from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.core.vntk import candidate_width
 from repro_torch.kernels import ops as kernel_ops
 
-__all__ = ["Levels", "StaticBackend", "StackedStaticBackend"]
+__all__ = ["Levels", "BACKENDS", "StaticBackend", "StackedStaticBackend",
+           "CpuTrieBackend", "PPVBackend", "HashBitmapBackend",
+           "UnconstrainedBackend"]
 
 Levels = Literal["auto", "dense", "sparse"]
 
@@ -81,6 +92,7 @@ class StaticBackend:
 
     supports_fused = True
     supports_stacked = False
+    needs_prefix = False
     supports_topk = True
 
     def __post_init__(self):
@@ -91,6 +103,10 @@ class StaticBackend:
     @property
     def sid_length(self) -> int:
         return self.tm.sid_length
+
+    @property
+    def device(self) -> torch.device:
+        return self.tm.device
 
     def topk_at(self, step: int) -> bool:
         """Candidate compression applies to the sparse (CSR) band only."""
@@ -104,7 +120,8 @@ class StaticBackend:
     def _bmax(self, step: int) -> int:
         return max(self.tm.bmax_for_step(step), 1)
 
-    def mask_step(self, log_probs, nodes, step, *, constraint_ids=None):
+    def mask_step(self, log_probs, nodes, step, *, prefix_tokens=None,
+                  constraint_ids=None):
         """``(masked_lp, next_dense)``, both vocab-aligned ``(..., V)``."""
         _reject_constraint_ids(constraint_ids, "a single TransitionMatrix")
         _check_step(step, self.tm.sid_length)
@@ -124,7 +141,8 @@ class StaticBackend:
         return fn(values, nodes, self.tm.row_pointers, self.tm.edges,
                   self._bmax(step), self.tm.vocab_size, impl=self.impl)
 
-    def fused_step(self, logits, nodes, step, *, constraint_ids=None):
+    def fused_step(self, logits, nodes, step, *, prefix_tokens=None,
+                   constraint_ids=None):
         """Phases 1-2 in one pass on sparse steps; dense steps normalize
         then look up."""
         _reject_constraint_ids(constraint_ids, "a single TransitionMatrix")
@@ -174,6 +192,7 @@ class StackedStaticBackend:
 
     supports_fused = True
     supports_stacked = True
+    needs_prefix = False
     supports_topk = True
 
     def __post_init__(self):
@@ -184,6 +203,10 @@ class StackedStaticBackend:
     @property
     def sid_length(self) -> int:
         return self.store.sid_length
+
+    @property
+    def device(self) -> torch.device:
+        return self.store.device
 
     @property
     def num_sets(self) -> int:
@@ -212,7 +235,8 @@ class StackedStaticBackend:
                 "ConstraintStore lookups need per-row constraint_ids")
         _check_step(step, self.store.sid_length)
 
-    def mask_step(self, log_probs, nodes, step, *, constraint_ids=None):
+    def mask_step(self, log_probs, nodes, step, *, prefix_tokens=None,
+                  constraint_ids=None):
         if self._dense(step, constraint_ids):
             if step == 0:
                 return dense_mask.dense_lookup_l0(
@@ -234,7 +258,8 @@ class StackedStaticBackend:
                   self._bmax(step), self.store.vocab_size, impl=self.impl,
                   constraint_ids=constraint_ids)
 
-    def fused_step(self, logits, nodes, step, *, constraint_ids=None):
+    def fused_step(self, logits, nodes, step, *, prefix_tokens=None,
+                   constraint_ids=None):
         if self._dense(step, constraint_ids):
             lp = torch.log_softmax(logits.float(), dim=-1)
             return self.mask_step(lp, nodes, step,
@@ -262,3 +287,143 @@ class StackedStaticBackend:
             self._bmax(step), self.store.vocab_size, width,
             fused_logsoftmax=not normalized, impl=self.impl,
             constraint_ids=constraint_ids)
+
+
+# ---------------------------------------------------------------------------
+# Baseline backends: the prefix-token interface (paper §5.2)
+# ---------------------------------------------------------------------------
+def _require_prefix(prefix_tokens, who: str):
+    if prefix_tokens is None:
+        raise ValueError(
+            f"{who} masks by emitted-token history; run it through a "
+            "DecodePolicy-driven beam_search (which carries the prefix in "
+            "its beam state) or pass prefix_tokens explicitly")
+
+
+class _Baseline:
+    """Flags and checks shared by the prefix-interface baselines."""
+
+    supports_fused = False
+    supports_stacked = False
+    needs_prefix = True
+    supports_topk = False
+
+    def _checked(self, step, prefix_tokens, constraint_ids) -> None:
+        who = type(self).__name__
+        _reject_constraint_ids(constraint_ids, who)
+        _require_prefix(prefix_tokens, who)
+        _check_step(step, self.sid_length)
+
+
+@dataclasses.dataclass(frozen=True)
+class CpuTrieBackend(_Baseline):
+    """The host pointer-chasing trie (Table 1 baseline): every step waits
+    for a device-to-host-to-device round trip."""
+
+    baseline: CpuTrieBaseline
+    device = None  # the trie lives on the host
+
+    @property
+    def sid_length(self) -> int:
+        return self.baseline.sid_length
+
+    def mask_step(self, log_probs, nodes, step, *, prefix_tokens=None,
+                  constraint_ids=None):
+        self._checked(step, prefix_tokens, constraint_ids)
+        return self.baseline.mask_step(log_probs, prefix_tokens, step)
+
+
+@dataclasses.dataclass(frozen=True)
+class PPVBackend(_Baseline, PPVBaseline):
+    """DISC-PPV: a parallel binary search over the sorted SID table.
+
+    Reuses :class:`PPVBaseline`'s search and verification over its tables:
+    ``sids_sorted`` (N, L) int32 and ``keys`` (N, 4) int64 holding the
+    packed uint32 lanes.
+    """
+
+    sids_sorted: torch.Tensor
+    keys: torch.Tensor
+    n: int
+    vocab_size: int
+    sid_length: int
+    exact: bool
+    top_k: int
+    n_search_steps: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.keys.device
+
+    @classmethod
+    def from_baseline(cls, b: PPVBaseline) -> "PPVBackend":
+        return cls(sids_sorted=b.sids_sorted, keys=b.keys, n=b.n,
+                   vocab_size=b.vocab_size, sid_length=b.sid_length,
+                   exact=b.exact, top_k=b.top_k,
+                   n_search_steps=b.n_search_steps)
+
+    @classmethod
+    def from_sids(cls, sids, vocab_size: int, *, exact: bool = True,
+                  top_k: int = 50, device=None) -> "PPVBackend":
+        return cls.from_baseline(PPVBaseline(sids, vocab_size, exact=exact,
+                                             top_k=top_k, device=device))
+
+    def mask_step(self, log_probs, nodes, step, *, prefix_tokens=None,
+                  constraint_ids=None):
+        self._checked(step, prefix_tokens, constraint_ids)
+        return PPVBaseline.mask_step(self, log_probs, prefix_tokens, step)
+
+
+@dataclasses.dataclass(frozen=True)
+class HashBitmapBackend(_Baseline, HashBitmapBaseline):
+    """Bloom-style hashed-prefix bitmap (constant time, false positives);
+    ``bitmap`` is the ``(2^log2_bits / 8,)`` uint8 table."""
+
+    bitmap: torch.Tensor
+    vocab_size: int
+    sid_length: int
+    log2_bits: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.bitmap.device
+
+    @classmethod
+    def from_baseline(cls, b: HashBitmapBaseline) -> "HashBitmapBackend":
+        return cls(bitmap=b.bitmap, vocab_size=b.vocab_size,
+                   sid_length=b.sid_length, log2_bits=b.log2_bits)
+
+    @classmethod
+    def from_sids(cls, sids, vocab_size: int, *, log2_bits: int = 27,
+                  device=None) -> "HashBitmapBackend":
+        return cls.from_baseline(HashBitmapBaseline(
+            sids, vocab_size, log2_bits=log2_bits, device=device))
+
+    def mask_step(self, log_probs, nodes, step, *, prefix_tokens=None,
+                  constraint_ids=None):
+        self._checked(step, prefix_tokens, constraint_ids)
+        return HashBitmapBaseline.mask_step(self, log_probs, prefix_tokens,
+                                            step)
+
+
+@dataclasses.dataclass(frozen=True)
+class UnconstrainedBackend:
+    """No validity check at all: the latency lower bound of Table 1."""
+
+    supports_fused = False
+    supports_stacked = False
+    needs_prefix = False
+    supports_topk = False
+    sid_length = None
+    device = None
+
+    def mask_step(self, log_probs, nodes, step, *, prefix_tokens=None,
+                  constraint_ids=None):
+        _reject_constraint_ids(constraint_ids, "UnconstrainedBackend")
+        # every token is valid; beams stay parked at the root state
+        return log_probs, torch.ones(log_probs.shape, dtype=torch.int32,
+                                     device=log_probs.device)
+
+
+BACKENDS = (StaticBackend, StackedStaticBackend, CpuTrieBackend, PPVBackend,
+            HashBitmapBackend, UnconstrainedBackend)

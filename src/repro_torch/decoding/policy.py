@@ -1,22 +1,37 @@
 """DecodePolicy — a per-level constraint plan for beam decoding.
 
-Counterpart of ``repro.decoding.policy.DecodePolicy`` for the STATIC plans
-over one matrix or a stacked multi-tenant store: it binds which backend
-masks each decode level and normalizes Phase 1 (log-softmax) unless the
-backend fuses it.  Per-row ``constraint_ids`` reach only the backends that
-read a stacked store.
+Counterpart of ``repro.decoding.policy.DecodePolicy`` (without the
+level-free and shared-mask steps and ``shardings``, which are not ported
+yet): it binds which backend masks each decode level (STATIC over one matrix
+or a stacked multi-tenant store, or one of the paper's §5.2 baselines) and
+normalizes Phase 1 (log-softmax) unless the backend fuses it.  Per-row
+``constraint_ids`` reach only the backends that read a stacked store, and
+the emitted tokens (``prefix_tokens``) the baselines that mask by them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.constraints.store import ConstraintStore
+from repro_torch.core.baselines import (
+    CpuTrieBaseline,
+    HashBitmapBaseline,
+    PPVBaseline,
+)
 from repro_torch.core.compressed_slab import CompressedSlab
 from repro_torch.core.transition_matrix import TransitionMatrix
-from repro_torch.decoding.backends import StackedStaticBackend, StaticBackend
+from repro_torch.decoding.backends import (
+    BACKENDS,
+    CpuTrieBackend,
+    HashBitmapBackend,
+    PPVBackend,
+    StackedStaticBackend,
+    StaticBackend,
+    UnconstrainedBackend,
+)
 
 __all__ = ["DecodePolicy", "as_policy"]
 
@@ -25,8 +40,10 @@ __all__ = ["DecodePolicy", "as_policy"]
 class DecodePolicy:
     """Per-level backend plan: ``backends[plan[step]]`` masks ``step``.
 
-    ``candidate_topk`` runs every level whose backend supports it through
-    the candidate-compressed step (DESIGN.md §8).
+    Steps beyond ``len(plan)`` reuse the final entry (relevant only for the
+    unconstrained policy, whose length is unbounded).  ``candidate_topk``
+    runs every level whose backend supports it through the
+    candidate-compressed step (DESIGN.md §8).
     """
 
     backends: tuple
@@ -46,8 +63,33 @@ class DecodePolicy:
         return self.backends[self.plan[min(step, len(self.plan) - 1)]]
 
     @property
+    def sid_length(self) -> Optional[int]:
+        for b in self.backends:
+            if b.sid_length is not None:
+                return b.sid_length
+        return None
+
+    @property
+    def is_constrained(self) -> bool:
+        return any(not isinstance(b, UnconstrainedBackend)
+                   for b in self.backends)
+
+    @property
     def requires_constraint_ids(self) -> bool:
         return any(b.supports_stacked for b in self.backends)
+
+    @property
+    def needs_prefix(self) -> bool:
+        return any(b.needs_prefix for b in self.backends)
+
+    @property
+    def device(self) -> Optional[torch.device]:
+        """The device of the first tables the policy holds, or ``None`` when
+        it holds none (the host trie, the unconstrained step)."""
+        for b in self.backends:
+            if b.device is not None:
+                return b.device
+        return None
 
     @property
     def num_sets(self) -> Optional[int]:
@@ -59,9 +101,14 @@ class DecodePolicy:
 
     @property
     def constraints(self):
-        """The underlying TransitionMatrix or ConstraintStore."""
-        b = self.backends[0]
-        return b.store if isinstance(b, StackedStaticBackend) else b.tm
+        """The underlying TransitionMatrix or ConstraintStore, or ``None``
+        when no STATIC backend is present."""
+        for b in self.backends:
+            if isinstance(b, StackedStaticBackend):
+                return b.store
+            if isinstance(b, StaticBackend):
+                return b.tm
+        return None
 
     def _ids_for(self, b, constraint_ids):
         """The ids a backend takes: only stacked backends read them."""
@@ -105,23 +152,33 @@ class DecodePolicy:
         return b.topk_step(lp, nodes, step, width, constraint_ids=cids,
                            normalized=True)
 
-    def step(self, logits, nodes, step: int, *, constraint_ids=None,
-             normalized: bool = False):
+    def step(self, logits, nodes, step: int, *, prefix_tokens=None,
+             constraint_ids=None, normalized: bool = False):
         """Phases 1-2 of Alg. 1: ``(masked_log_probs, next_dense)``, both
-        vocab-aligned."""
+        vocab-aligned.  ``prefix_tokens`` (..., L) are the beams' emitted
+        tokens, which the baselines mask by."""
         b = self.backend_for(step)
+        if b.needs_prefix and prefix_tokens is None:
+            raise ValueError(
+                f"{type(b).__name__} needs prefix_tokens at step {step}")
         cids = self._ids_for(b, constraint_ids)
-        if not normalized and b.fused:
-            return b.fused_step(logits, nodes, step, constraint_ids=cids)
+        if not normalized and getattr(b, "fused", False):
+            return b.fused_step(logits, nodes, step,
+                                prefix_tokens=prefix_tokens,
+                                constraint_ids=cids)
         lp = logits if normalized else torch.log_softmax(logits.float(), dim=-1)
-        return b.mask_step(lp, nodes, step, constraint_ids=cids)
+        return b.mask_step(lp, nodes, step, prefix_tokens=prefix_tokens,
+                           constraint_ids=cids)
 
     def describe(self) -> str:
         """Human-readable per-level plan, e.g. ``L0-1:dense-bitpack
         L2-7:vntk[auto+topk]`` (``auto``: kernel on the card, plain on
         the CPU; ``+slab``: the compressed edge slab); stacked backends read
-        ``stacked(K=...):...``."""
+        ``stacked(K=...):...``, baselines their backend's name
+        (``ppv``, ``cputrie``, ``hashbitmap``, ``unconstrained``)."""
         def label(b):
+            if not isinstance(b, (StaticBackend, StackedStaticBackend)):
+                return type(b).__name__.replace("Backend", "").lower()
             kind = "dense-bitpack" if b.levels == "dense" else (
                 f"vntk[{b.impl or 'auto'}{'+fused' if b.fused else ''}"
                 f"{'+topk' if self.candidate_topk else ''}"
@@ -207,16 +264,66 @@ class DecodePolicy:
                    plan=tuple(0 if s < d else 1 for s in range(L)),
                    candidate_topk=topk)
 
+    @classmethod
+    def cpu_trie(cls, sids=None, vocab_size: Optional[int] = None, *,
+                 baseline: Optional[CpuTrieBaseline] = None) -> "DecodePolicy":
+        b = baseline or CpuTrieBaseline(sids, vocab_size)
+        return cls(backends=(CpuTrieBackend(b),), plan=(0,) * b.sid_length)
+
+    @classmethod
+    def ppv(cls, sids=None, vocab_size: Optional[int] = None, *,
+            exact: bool = True, top_k: int = 50,
+            baseline: Optional[PPVBaseline] = None,
+            device=None) -> "DecodePolicy":
+        b = (PPVBackend.from_baseline(baseline) if baseline is not None
+             else PPVBackend.from_sids(sids, vocab_size, exact=exact,
+                                       top_k=top_k, device=device))
+        return cls(backends=(b,), plan=(0,) * b.sid_length)
+
+    @classmethod
+    def hash_bitmap(cls, sids=None, vocab_size: Optional[int] = None, *,
+                    log2_bits: int = 27,
+                    baseline: Optional[HashBitmapBaseline] = None,
+                    device=None) -> "DecodePolicy":
+        b = (HashBitmapBackend.from_baseline(baseline)
+             if baseline is not None
+             else HashBitmapBackend.from_sids(sids, vocab_size,
+                                              log2_bits=log2_bits,
+                                              device=device))
+        return cls(backends=(b,), plan=(0,) * b.sid_length)
+
+    @classmethod
+    def unconstrained(cls) -> "DecodePolicy":
+        return cls(backends=(UnconstrainedBackend(),), plan=(0,))
+
+    @classmethod
+    def per_level(cls, backends: Sequence, plan: Sequence[int]
+                  ) -> "DecodePolicy":
+        """Escape hatch: an arbitrary per-level composition."""
+        return cls(backends=tuple(backends), plan=tuple(plan))
+
 
 def as_policy(obj) -> DecodePolicy:
-    """A :class:`DecodePolicy` as it is, the stacked plan of a store, or the
-    STATIC plan of a matrix."""
+    """A :class:`DecodePolicy` from ``None`` (unconstrained), a
+    TransitionMatrix (STATIC), a ConstraintStore (stacked), a §5.2
+    baseline, a single backend, or a policy (returned as it is)."""
     if isinstance(obj, DecodePolicy):
         return obj
+    if obj is None:
+        return DecodePolicy.unconstrained()
     if isinstance(obj, ConstraintStore):
         return DecodePolicy.stacked(obj)
     if isinstance(obj, TransitionMatrix):
         return DecodePolicy.static(obj)
+    if isinstance(obj, CpuTrieBaseline):
+        return DecodePolicy.cpu_trie(baseline=obj)
+    if isinstance(obj, PPVBaseline) and not isinstance(obj, PPVBackend):
+        return DecodePolicy.ppv(baseline=obj)
+    if isinstance(obj, HashBitmapBaseline) and not isinstance(
+            obj, HashBitmapBackend):
+        return DecodePolicy.hash_bitmap(baseline=obj)
+    if isinstance(obj, BACKENDS):
+        return DecodePolicy(backends=(obj,), plan=(0,) * (obj.sid_length or 1))
     raise TypeError(f"cannot build a DecodePolicy from {type(obj).__name__}; "
-                    "pass a DecodePolicy, TransitionMatrix or "
-                    "ConstraintStore")
+                    "pass a DecodePolicy, TransitionMatrix, ConstraintStore, "
+                    "baseline, backend, or None")

@@ -7,6 +7,9 @@ beam search of Algorithm 1 over SID tokens.  The prefill's last-position
 logits stand in for step 0, so a retrieve runs ``L - 1`` decode steps and
 ``L - 1`` beam reorders of the cache.
 
+The policy may be any of the paper's §5.2 baselines (CPU trie, DISC-PPV,
+hash bitmap) or ``None`` (unconstrained): they serve through the same path.
+
 Multi-tenant mode (DESIGN.md §4): with a stacked policy
 (``DecodePolicy.stacked(store)``, or just the ConstraintStore) ``retrieve``
 takes a per-request ``constraint_ids`` vector and decodes each batch row
@@ -34,10 +37,15 @@ __all__ = ["GenerativeRetriever"]
 
 
 class GenerativeRetriever:
-    """Serves on the device of ``params`` (and of the policy's matrix)."""
+    """Serves on the device of ``params``, where the tables of the policy
+    must lie too.  ``policy=None`` decodes unconstrained; a §5.2 baseline
+    serves through the same path as STATIC."""
 
-    def __init__(self, params, cfg: TransformerConfig, policy,
-                 sid_length: int, sid_vocab: int, beam_size: int = 20):
+    def __init__(self, params, cfg: TransformerConfig, policy=None,
+                 sid_length: Optional[int] = None,
+                 sid_vocab: Optional[int] = None, beam_size: int = 20):
+        if sid_length is None or sid_vocab is None:
+            raise TypeError("sid_length and sid_vocab are required")
         self.params = params
         self.cfg = cfg
         self.policy = as_policy(policy)
@@ -45,10 +53,10 @@ class GenerativeRetriever:
         self.V = sid_vocab
         self.M = beam_size
         self.device = params["emb"].device
-        if self.policy.constraints.device != self.device:
-            raise ValueError(
-                f"constraints on {self.policy.constraints.device}, model on "
-                f"{self.device}")
+        for b in self.policy.backends:
+            if b.device is not None and b.device != self.device:
+                raise ValueError(f"{type(b).__name__} tables on {b.device}, "
+                                 f"model on {self.device}")
 
     # -- constraint plumbing -----------------------------------------------
     @property
@@ -58,8 +66,9 @@ class GenerativeRetriever:
 
     @property
     def constraints(self):
-        """The TransitionMatrix or ConstraintStore served (read-only;
-        install a refreshed one with :meth:`set_constraints`)."""
+        """The TransitionMatrix or ConstraintStore served, or ``None`` under
+        a baseline or unconstrained policy (read-only; install a refreshed
+        one with :meth:`set_constraints`)."""
         return self.policy.constraints
 
     def set_constraints(self, obj) -> bool:

@@ -2,10 +2,12 @@
 
 ``tests/golden/traces.npz`` holds, per backend, the post-advance beams of
 every decode level, generated by the reference's dense path.  The port
-replays the ``static``, ``static_fused`` and ``static_d0`` entries step by
-step with the same logits table and ``logits_fn``
-(``tests/golden/regenerate.py``), under both the candidate-compressed and
-the vocab-aligned advance.
+replays the ``static``, ``static_fused`` and ``static_d0`` entries and the
+§5.2 baselines' ``ppv_exact``, ``cpu_trie`` and ``hash_bitmap`` (the
+reference's ``log2_bits=22``) step by step with the same logits table and
+``logits_fn`` (``tests/golden/regenerate.py``), under both the
+candidate-compressed and the vocab-aligned advance (the baselines have no
+candidate step, so both run vocab-aligned).
 """
 import pathlib
 
@@ -30,6 +32,12 @@ def golden():
 
 
 def _policy(name, sids):
+    if name == "ppv_exact":
+        return DecodePolicy.ppv(sids, V, exact=True, device="cpu")
+    if name == "cpu_trie":
+        return DecodePolicy.cpu_trie(sids, V)
+    if name == "hash_bitmap":
+        return DecodePolicy.hash_bitmap(sids, V, log2_bits=22, device="cpu")
     if name == "static_d0":
         return DecodePolicy.static(
             TransitionMatrix.from_sids(sids, V, dense_d=0, device="cpu"))
@@ -37,7 +45,8 @@ def _policy(name, sids):
     return DecodePolicy.static(tm, fused=name == "static_fused")
 
 
-@pytest.mark.parametrize("name", ["static", "static_fused", "static_d0"])
+@pytest.mark.parametrize("name", ["static", "static_fused", "static_d0",
+                                  "ppv_exact", "cpu_trie", "hash_bitmap"])
 @pytest.mark.parametrize("topk", [True, False])
 def test_golden_trace_step_by_step(golden, name, topk):
     inputs, traces = golden
@@ -47,9 +56,10 @@ def test_golden_trace_step_by_step(golden, name, topk):
         return table[step][last.long()], carry
 
     policy = _policy(name, inputs["sids"]).with_topk(topk)
-    assert policy.supports_topk_at(L - 1) == topk
+    assert policy.supports_topk_at(L - 1) == (topk and name.startswith(
+        "static"))
     state, _, trace = beam_search(logits_fn, None, B, M, L, policy,
-                                  return_trace=True)
+                                  return_trace=True, device="cpu")
     assert trace.tokens.dtype == torch.int32 and trace.tokens.shape == (L, B, M, L)
     want_tokens = traces[f"{name}_trace_tokens"]
     want_scores = traces[f"{name}_trace_scores"]
@@ -109,4 +119,5 @@ def test_policy_plan_and_errors():
     with pytest.raises(ValueError, match="impl"):
         StaticBackend(tm, impl="pallas")
     with pytest.raises(TypeError):
-        as_policy(None)
+        as_policy("not a policy")
+    assert as_policy(None).describe() == "L0:unconstrained"

@@ -12,17 +12,22 @@ topk kernel's two routes (a warp per row up to bmax 32, a block per row
 above) for each of its eight instantiations, and of the VNTK mask kernel's
 two paths (one warp holds the slots up to bmax 32, the block scatters them
 above) for each of its eight, with their 16-byte and scalar loads and
-stores.
+stores.  The §5.2 baselines have no kernel: their masks on CUDA tensors
+must equal their masks on the CPU, and an unconstrained beam search runs on
+the card with no VNTK launch.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.constraints import ConstraintStore
+from repro_torch.core import baselines
+from repro_torch.core.beam_search import beam_search
 from repro_torch.core.compressed_slab import CompressedSlab
 from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.core.trie import build_flat_trie
 from repro_torch.core.vntk import NEG_INF
+from repro_torch.decoding import DecodePolicy
 from repro_torch.kernels import embedding_bag as bag
 from repro_torch.kernels import ops
 from repro_torch.kernels import vntk as kv
@@ -258,3 +263,60 @@ def test_mask_reads_unaligned_logit_rows(rng, kernel):
             wide[:, offset:] = args[0]
             args[0] = wide[:, offset:]
             _assert_mask_equal(*_launch_once(kernel, fused, args), fused)
+
+
+BASELINES = {
+    "ppv_exact": lambda sids, V, dev: baselines.PPVBaseline(sids, V,
+                                                            device=dev),
+    "ppv_approx": lambda sids, V, dev: baselines.PPVBaseline(
+        sids, V, exact=False, top_k=50, device=dev),
+    "hash_bitmap": lambda sids, V, dev: baselines.HashBitmapBaseline(
+        sids, V, log2_bits=14, device=dev),
+    "cpu_trie": lambda sids, V, dev: baselines.CpuTrieBaseline(sids, V),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(BASELINES))
+def test_baseline_mask_on_the_card_equals_the_cpu(rng, name):
+    """Tables built on the card equal the CPU's; so do masks and next
+    states at every step, on walked and random prefixes."""
+    _card()
+    V, L = 64, 5
+    sids = rng.integers(0, V, size=(3000, L))
+    cpu, card = (BASELINES[name](sids, V, dev) for dev in ("cpu", "cuda"))
+    for table in ("sids_sorted", "keys", "bitmap"):
+        if hasattr(cpu, table):
+            assert getattr(card, table).is_cuda
+            assert torch.equal(getattr(card, table).cpu(), getattr(cpu, table))
+    pf = torch.from_numpy(np.concatenate(
+        [sids[rng.integers(0, 3000, 40)], rng.integers(0, V, (40, L))]
+    ).astype(np.int32))
+    for step in range(L):
+        lp = torch.from_numpy(rng.normal(size=(80, V)).astype(np.float32))
+        lp[::3] = torch.from_numpy(rng.integers(-2, 2, (27, V)).astype(
+            np.float32))  # ties for the approximate top-k
+        want = cpu.mask_step(lp, pf, step)
+        got = card.mask_step(lp.cuda(), pf.cuda(), step)
+        assert got[0].is_cuda and got[1].is_cuda
+        assert torch.equal(got[0].cpu(), want[0]), step
+        assert torch.equal(got[1].cpu(), want[1]), step
+
+
+@pytest.mark.gpu
+def test_unconstrained_beam_search_on_the_card_launches_no_kernel(rng):
+    _card()
+    table = torch.from_numpy(rng.normal(size=(4, 32, 32)).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tbl = table.to(dev)
+        kv.reset_launches()
+        runs[dev], _ = beam_search(
+            lambda c, last, s: (tbl[s][last.long()], c), None, 2, 6, 4,
+            DecodePolicy.unconstrained(), device=dev)
+        assert not any(kv.LAUNCHES.values())
+    assert runs["cuda"].tokens.is_cuda
+    assert torch.equal(runs["cuda"].tokens.cpu(), runs["cpu"].tokens)
+    assert torch.equal(runs["cuda"].nodes.cpu(), runs["cpu"].nodes)
+    torch.testing.assert_close(runs["cuda"].scores.cpu(), runs["cpu"].scores,
+                               rtol=1e-6, atol=1e-6)
