@@ -13,9 +13,12 @@ Phases (any failure raises and the script exits non-zero):
               ``category`` uniform over 8 (the reference's
               ``synthetic_catalog``).  The trie of every SID serves the
               single-matrix path; the ``multi_constraint`` scenario's five
-              slots (``fresh_22/45/67/90``: age <= 22.5/45/67.5/90;
-              ``cat_01``: categories 0 and 1) are stacked into a
-              ``ConstraintStore`` at dense_d=2 and headroom 0.5.  The
+              slots (``freshness_window(22.5/45/67.5/90)``,
+              ``category_allowlist(0, 1)``) are stacked into a
+              ``ConstraintStore`` at dense_d=2 and headroom 0.5 by
+              ``ConstraintRegistry.build`` (the slots' tries built on the
+              host in a thread pool, the store on the card), whose build
+              time is printed.  The
               delta-compressed edge slab of each (DESIGN.md §11) is built on
               the card; its dtype must be int16 and its bytes (row pointers,
               deltas, level bases) at most 0.7x the uncompressed CSR's (the
@@ -89,7 +92,36 @@ Phases (any failure raises and the script exits non-zero):
               swap of a re-aged ``fresh_22`` under the default and the
               compressed policy must be reported hot and keep row 0
               compliant with the new set.
-6. table1   — the paper's Table 1 baselines (§5.2) beside STATIC, while
+6. engine   — phase 5's retrievers released, ``ServingEngine`` over the
+              phase-2 registry (B = 5, max_len 512, the stacked policy, M =
+              70).  (a) 20 requests of 256-token histories in a skewed burst
+              over lanes 0-4 (8, 4, 4, 2, 2): the first batch holds all five
+              lanes and must equal, bit for bit, a direct ``retrieve`` of the
+              same histories and ids; every batch must launch the stacked
+              topk kernel L - dense_d = 6 times and no other VNTK kernel
+              (the counters are zeroed just before each serve and read just
+              after), and every live beam must be in its row's
+              ``slot_sids``.  (b) 1% churn (the ``refresh_churn``
+              scenario's): a ``CatalogDelta`` removing 200,000 catalog SIDs
+              and adding 200,000 seeded items, submitted through
+              ``AsyncRefresher.apply_delta_async`` while the engine serves
+              rounds of 5 requests (at least 4, until the future resolves,
+              then 3 more): the future must give version 2, the engine must
+              count 1 hot swap, no cold one and no unexpected
+              specialization, drop no request, and every row must comply
+              with the slot sets of the version in its ``store_version``.
+              It prints the worker's seconds (trie assembly, upload and
+              stack, flip), the largest staleness, batch latencies before,
+              during and after the refresh, and the peak device memory
+              during the swap.  (c) A second registry of 100,000 seeded
+              items at headroom 0 and ``swap_async`` of a 300,000-item
+              snapshot: one cold swap, exactly 1 specialization on the next
+              batch and 0 on the one after, compliance under the regrown
+              store.  (d) ``ServingEngine.generate``, greedy, B = 2, 4
+              tokens, equal to a manual ``prefill``/``decode_step`` loop.
+              One ``{"engine": ...}`` JSON line carries the numbers; the
+              engine's stacked topk launches join that kernel's row.
+7. table1   — the paper's Table 1 baselines (§5.2) beside STATIC, while
               the catalog trie, the store and the model are on the card:
               DISC-PPV's sorted table of the whole catalog (exact, and
               approximate over the top 50), the hash bitmap of every prefix
@@ -127,7 +159,7 @@ Phases (any failure raises and the script exits non-zero):
               One ``{"table1": ...}`` JSON line carries the overheads (ms),
               the ratios of ``cpu_trie``, ``ppv_exact``, ``ppv_approx`` and
               ``hash_bitmap`` to ``static``, and each median retrieve ms.
-7. bag      — the retrieval phases' tensors released, the EmbeddingBag
+8. bag      — the retrieval phases' tensors released, the EmbeddingBag
               kernel (``csrc/embedding_bag.cu``) against its plain version
               on the card.  Single-table entry: the reference's sweep ((B,
               K, D) in (8, 1, 32), (16, 4, 128), (5, 7, 64); float32 and
@@ -151,7 +183,7 @@ Phases (any failure raises and the script exits non-zero):
               the library yardstick (``F.embedding_bag``; for a group, its
               per-table calls in one CUDA graph; used nowhere in the port)
               are timed at the path's shapes as in phase 3.
-8. recsys   — wide-deep at its published size (40 tables of 32 floats and
+9. recsys   — wide-deep at its published size (40 tables of 32 floats and
               40 wide tables, 111,104,000 padded rows, 14.7 GB, seeded on the
               card) through ``recsys.forward`` at the reference's
               ``serve_p99`` (B = 512) and ``serve_bulk`` (B = 262,144)
@@ -166,7 +198,7 @@ Phases (any failure raises and the script exits non-zero):
               published size (10M x 64 items) at ``retrieval_cand`` (1M
               candidates, no bag launch): finite scores.  The phase's peak
               device memory is printed.
-9. report   — the card's ``nvidia-smi`` name and power limit, one JSON line
+10. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
               with a row per kernel function (a VNTK row with the ``path``
               its main-path levels took, ``warp`` or ``block``, for topk
               and mask alike; for the bag,
@@ -188,19 +220,18 @@ import os
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-SLOTS = {  # the multi_constraint scenario's slots (name: predicate)
-    "fresh_22": lambda age, cat: age <= 22.5,
-    "fresh_45": lambda age, cat: age <= 45.0,
-    "fresh_67": lambda age, cat: age <= 67.5,
-    "fresh_90": lambda age, cat: age <= 90.0,
-    "cat_01": lambda age, cat: np.isin(cat, (0, 1)),
+SLOTS = {  # the multi_constraint scenario's slots: (predicate, argument)
+    "fresh_22": ("freshness_window", 22.5),
+    "fresh_45": ("freshness_window", 45.0),
+    "fresh_67": ("freshness_window", 67.5),
+    "fresh_90": ("freshness_window", 90.0),
+    "cat_01": ("category_allowlist", (0, 1)),
 }
 HEADROOM = 0.5  # the registry's and the scenario's default
 SLAB_GATE = 0.7  # compressed / uncompressed CSR bytes (memory_table.py)
@@ -254,16 +285,43 @@ def device_ms(fn, iters: int = 50, reps: int = 5) -> float:
 # ---------------------------------------------------------------------------
 # phase 2: the indexes
 # ---------------------------------------------------------------------------
+def slot_predicates() -> dict:
+    """The slots' predicates, by name, from the port's registry module."""
+    from repro_torch import constraints
+
+    return {name: (getattr(constraints, kind)(*arg) if isinstance(arg, tuple)
+                   else getattr(constraints, kind)(arg))
+            for name, (kind, arg) in SLOTS.items()}
+
+
+def registry(headroom=HEADROOM):
+    """A ConstraintRegistry on the card with the five slots registered."""
+    from repro_torch.configs import static_gr
+    from repro_torch.constraints import ConstraintRegistry
+
+    reg = ConstraintRegistry(static_gr.SID_VOCAB, dense_d=static_gr.DENSE_D,
+                             headroom=headroom, device="cuda")
+    for name, pred in slot_predicates().items():
+        reg.register(name, pred)
+    return reg
+
+
 def build_indexes(rng, n):
-    """The catalog's single trie and its stacked store of the five slots.
+    """The catalog's single trie, and the registry whose store stacks the
+    five slots.
 
     Catalog items are kept in SID order, so every slot's SID set is a sorted
-    subset and the trie builder skips its sort.
+    subset and trie construction skips its sort.
     """
     from repro_torch.configs import static_gr
-    from repro_torch.constraints import ConstraintStore
+    from repro_torch.constraints import ItemCatalog
+    from repro_torch.constraints.registry import BUILD_THREADS
     from repro_torch.core.transition_matrix import TransitionMatrix
-    from repro_torch.core.trie import build_flat_trie, sorted_unique_sids
+    from repro_torch.core.trie import (
+        build_flat_trie,
+        infer_level_blocks,
+        sorted_unique_sids,
+    )
 
     V, L, d = static_gr.SID_VOCAB, static_gr.SID_LENGTH, static_gr.DENSE_D
     t0 = time.time()
@@ -274,34 +332,33 @@ def build_indexes(rng, n):
         f"edges, {tm.nbytes() / 1e9:.3f} GB on the card, level bmax "
         f"{list(map(int, ft.level_bmax))} ({time.time() - t0:.1f}s host build)")
 
+    catalog = ItemCatalog(sids=sids, age_days=rng.uniform(0.0, 90.0, len(sids)),
+                          category=rng.integers(0, 8, len(sids)))
     t0 = time.time()
-    age = rng.uniform(0.0, 90.0, sids.shape[0])
-    cat = rng.integers(0, 8, sids.shape[0])
-    masks = {name: pred(age, cat) for name, pred in SLOTS.items()}
-    todo = [name for name, m in masks.items() if not m.all()]
-    with ThreadPoolExecutor(4) as pool:  # numpy releases the GIL in sorts
-        built = dict(zip(todo, pool.map(
-            lambda name: build_flat_trie(sids[masks[name]], V, dense_d=d),
-            todo)))
-    fts = {name: built.get(name, ft) for name in SLOTS}  # all items: the trie
-    mats = [tm if fts[name] is ft else TransitionMatrix.from_flat_trie(
-        fts[name], device="cuda") for name in SLOTS]
-    store = ConstraintStore.from_matrices(mats, headroom=HEADROOM,
-                                          device="cuda")
-    del mats
-    torch.cuda.synchronize()
-    log(f"  stacked store of {len(SLOTS)} slots "
+    reg = registry()
+    store = reg.build(catalog)
+    build_s = time.time() - t0
+    masks = {name: np.asarray(pred(catalog))
+             for name, pred in slot_predicates().items()}
+    log(f"  ConstraintRegistry.build of {len(SLOTS)} slots "
         f"({', '.join(f'{k}: {int(m.sum())}' for k, m in masks.items())} SIDs)"
         f" at headroom {HEADROOM}: {store.n_states} states and "
         f"{store.n_edges} edge rows per member, level bmax "
         f"{list(store.level_bmax)}, {store.nbytes() / 1e9:.3f} GB on the "
-        f"card ({time.time() - t0:.1f}s host build)")
+        f"card in {build_s:.1f}s (tries built on the host in "
+        f"{BUILD_THREADS} threads, then uploaded)")
     slot_sids = [np.asfortranarray(sids[m]) for m in masks.values()]
-    offsets = [fts[name].level_offsets for name in SLOTS]
+    offsets = []  # each member's first state per level, read on the card
+    for k in range(store.num_sets):
+        m = store.member(k)
+        offsets.append(infer_level_blocks(
+            m.row_pointers, m.edges, n_states=m.n_states, n_edges=m.n_edges,
+            sid_length=L, dense_d=d).state_offsets)
     slab, store_slab = build_slabs(tm, store)
     return dict(sids=sids, ft=ft, tm=tm, store=store, slot_sids=slot_sids,
                 level_offsets=offsets, sorted_sids=np.asfortranarray(sids),
-                slab=slab, store_slab=store_slab)
+                slab=slab, store_slab=store_slab, registry=reg,
+                catalog=catalog, registry_build_s=build_s)
 
 
 def build_slabs(tm, store):
@@ -1199,7 +1256,8 @@ def phase_stacked(args, rng, params, cfg, idx):
     t0 = time.time()
     sids = idx["sids"]
     age = rng.uniform(0.0, 90.0, sids.shape[0])
-    fresh = sids[SLOTS["fresh_22"](age, None)]
+    fresh = sids[slot_predicates()["fresh_22"](dataclasses.replace(
+        idx["catalog"], age_days=age))]
     new = TransitionMatrix.from_flat_trie(
         build_flat_trie(fresh, V, dense_d=store.dense_d), device="cuda")
     swapped = store.with_member(0, new)
@@ -1277,7 +1335,282 @@ def profile_retrieve(retrieve, retrieve_ms, kernel="vntk"):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the paper's Table 1 baselines (§5.2) beside STATIC
+# phase 6: batch serving with a live catalog refresh
+# ---------------------------------------------------------------------------
+ENGINE_BURST = (8, 4, 4, 2, 2)  # (a): requests per lane, submitted at once
+CHURN = 0.01  # (b): the refresh_churn scenario's churn, 200,000 of 20M items
+COLD_ITEMS, COLD_SNAPSHOT = 100_000, 300_000  # (c): build, then snapshot
+MIN_REFRESH_ROUNDS = 4  # (b): rounds of 5 requests served at the least
+
+
+class EngineRun:
+    """Serves request rounds through one engine and holds each batch to the
+    path's contract: the stacked topk kernel launches ``L - dense_d`` times
+    per batch and no other VNTK kernel; no request is dropped."""
+
+    def __init__(self, eng, rng, n_sparse):
+        self.eng, self.rng, self.n_sparse = eng, rng, n_sparse
+        self.L = eng.retriever.L
+        self.launches = 0  # stacked topk launches of every serve
+        self.results = []  # every served request's result
+
+    def serve(self, lanes):
+        """Submit one request per entry of ``lanes`` (its constraint id),
+        serve them all; returns (seconds, {rid: prompt}, {rid: result})."""
+        from repro_torch.kernels import vntk as kv
+        from repro_torch.serving import RequestQueue
+
+        q, prompts = RequestQueue(), {}
+        S = self.eng.max_len // 2
+        for lane in lanes:
+            p = self.rng.integers(0, self.eng.cfg.vocab_size, S)
+            prompts[q.submit(p, n_tokens=self.L, constraint_id=lane)] = p
+        batches = self.eng.metrics.counter("serving_batches_total").total()
+        torch.cuda.synchronize()
+        kv.reset_launches()  # this serve's run starts here
+        t0 = time.perf_counter()
+        res = self.eng.serve(q)
+        dt = time.perf_counter() - t0
+        rose = dict(kv.LAUNCHES)  # ... and ends here
+        n = self.eng.metrics.counter("serving_batches_total").total() - batches
+        want = {k: (self.n_sparse * n if k == "vntk_stacked_topk" else 0)
+                for k in rose}
+        if rose != want:
+            raise AssertionError(f"engine: launches {rose}, expected {want} "
+                                 f"over {n} batches")
+        self.launches += rose["vntk_stacked_topk"]
+        if len(q) or set(res) != set(prompts):
+            raise AssertionError("engine: the queue did not drain")
+        for rid in prompts:
+            if "sids" not in res[rid]:
+                raise AssertionError(f"engine: request {rid} dropped: "
+                                     f"{res[rid]}")
+        self.results += res.values()
+        return dt, prompts, res
+
+
+def check_versions(results, sets):
+    """Every live beam of every result in its slot's set under the version
+    in its ``store_version``; returns the count of rows per version."""
+    rows = {}
+    for i, r in enumerate(results):
+        v = r["store_version"]
+        rows[v] = rows.get(v, 0) + 1
+        check_compliance(f"engine row {i} (slot {r['constraint_id']}, "
+                         f"version {v})", sets[v][r["constraint_id"]],
+                         r["sids"][None], r["scores"][None])
+    return rows
+
+
+def slot_sets(reg):
+    """The registry's current slot SID sets, sorted, in Fortran order."""
+    return [np.asfortranarray(reg.slot_sids(k).astype(np.int32))
+            for k in range(len(reg.names))]
+
+
+def phase_engine(args, params, cfg, idx):
+    """(a) serving, (b) a hot delta refresh while serving, (c) a cold swap,
+    (d) plain-LM generation; returns the JSON record and the stacked topk
+    launches of every engine serve."""
+    from repro_torch.configs import static_gr
+    from repro_torch.constraints import AsyncRefresher, CatalogDelta, ItemCatalog
+    from repro_torch.core.trie import sorted_unique_sids
+    from repro_torch.decoding import DecodePolicy
+    from repro_torch.models import transformer
+    from repro_torch.observability import compile_events
+    from repro_torch.serving import GenerativeRetriever, ServingEngine
+
+    rng = np.random.default_rng([args.seed, 7])  # later phases unmoved
+    L, V, M = static_gr.SID_LENGTH, static_gr.SID_VOCAB, static_gr.BEAM_SIZE
+    S = static_gr.HISTORY_LEN
+    reg = idx["registry"]
+    store, _ = reg.current()
+    B, n_sparse = store.num_sets, L - store.dense_d
+    retriever = GenerativeRetriever(params, cfg, DecodePolicy.stacked(store),
+                                    L, V, beam_size=M)
+    eng = ServingEngine(params, cfg, batch_size=B, max_len=2 * S,
+                        retriever=retriever, registry=reg)
+    run = EngineRun(eng, rng, n_sparse)
+    counter = eng.metrics.counter
+    out = {"registry_build_s": idx["registry_build_s"]}
+
+    # (a) a skewed burst: the first batch holds all five lanes
+    c0 = compile_events()
+    lanes = [lane for lane, n in enumerate(ENGINE_BURST) for _ in range(n)]
+    burst_s, prompts, res = run.serve(lanes)
+    rids = list(prompts)
+    batches = int(counter("serving_batches_total").total())
+    specialized = compile_events() - c0
+    if specialized != 1:
+        raise AssertionError(f"(a): {specialized} specializations, want 1")
+    # round robin: the first batch holds each lane's first request
+    first = [rids[lanes.index(k)] for k in range(B)]
+    beams, scores = retriever.retrieve(
+        np.stack([prompts[r] for r in first]).astype(np.int32),
+        np.arange(B, dtype=np.int32))
+    for i, rid in enumerate(first):
+        got = res[rid]
+        if not (np.array_equal(got["sids"], beams[i])
+                and np.array_equal(got["scores"], scores[i])):
+            raise AssertionError(f"(a): request {rid} differs from a direct "
+                                 "retrieve of the same batch")
+    sets = {1: idx["slot_sids"]}
+    check_versions(run.results, sets)
+    log(f"  (a) {len(lanes)} requests (lanes {ENGINE_BURST}) in {batches} "
+        f"batches of {B} in {burst_s:.2f}s; first batch bit-equal to a direct "
+        f"retrieve; {n_sparse} vntk_stacked_topk launches per batch, no "
+        "other VNTK kernel; 100% per-row compliance")
+    out["serve"] = dict(requests=len(lanes), batches=batches,
+                        seconds=burst_s, first_batch_bit_equal=True,
+                        launches_per_batch=n_sparse)
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run.serve(range(B))
+        spans = [e for e in prof.key_averages() if e.key == "serve_batch"]
+        if not spans:
+            raise AssertionError("no serve_batch span in the engine's trace")
+        log(f"  profile: serve_batch x{spans[0].count}, "
+            f"{spans[0].cpu_time_total / 1e3:.1f} ms of host time")
+
+    # (b) 1% churn through the refresher while the engine serves
+    quiet = [run.serve(range(B))[0] for _ in range(3)]
+    sids = idx["sids"]
+    churn = round(CHURN * sids.shape[0])
+    delta = CatalogDelta(
+        removed_sids=sids[rng.choice(sids.shape[0], churn, replace=False)],
+        added=ItemCatalog(sids=rng.integers(0, V, (churn, L)),
+                          age_days=rng.uniform(0.0, 90.0, churn),
+                          category=rng.integers(0, 8, churn)))
+    hot0 = counter("serving_hot_swaps_total").total()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    during, after, stale = [], [], 0.0
+    with AsyncRefresher(reg) as ref:
+        t0 = time.perf_counter()
+        fut = ref.apply_delta_async(delta)
+        while not fut.done() or len(during) < MIN_REFRESH_ROUNDS:
+            during.append(run.serve(range(B))[0])
+            stale = max(stale, ref.staleness_seconds())
+        version = fut.result()  # a failed refresh raises here
+        done_s = time.perf_counter() - t0
+        apply_s = ref.metrics.histogram("refresh_apply_seconds").sum(
+            kind="delta")
+    peak = torch.cuda.max_memory_allocated()
+    after = [run.serve(range(B))[0] for _ in range(3)]
+    if version != 2:
+        raise AssertionError(f"(b): refresh installed version {version}")
+    hot = int(counter("serving_hot_swaps_total").total() - hot0)
+    unexpected = int(counter("serving_recompiles_total").value(
+        expected="false"))
+    if hot != 1 or eng.cold_swaps or unexpected:
+        raise AssertionError(f"(b): {hot} hot and {eng.cold_swaps} cold "
+                             f"swaps, {unexpected} unexpected "
+                             "specializations")
+    sets[2] = slot_sets(reg)
+    rows = check_versions(run.results, sets)
+    split = reg.last_delta_seconds
+    n_req = B * (len(during) + len(after))
+    log(f"  (b) delta of {churn} removed and {churn} added items: version "
+        f"{version} after {done_s:.1f}s (worker {apply_s:.1f}s: trie "
+        f"assembly {split['assemble']:.1f}s, upload and stack "
+        f"{split['upload']:.2f}s, flip {split['flip']:.3f}s); {n_req} "
+        f"requests served meanwhile and after, none dropped, rows per "
+        f"version {rows}; 1 hot swap, 0 cold, 0 unexpected "
+        f"specializations; largest staleness {stale:.1f}s")
+    log(f"  (b) batch latency: median {np.median(quiet) * 1e3:.1f} ms quiet, "
+        f"{np.median(during) * 1e3:.1f} ms (max {max(during) * 1e3:.1f}) "
+        f"over {len(during)} batches during the refresh, "
+        f"{np.median(after) * 1e3:.1f} ms after; peak device memory during "
+        f"the swap {peak / 1e9:.1f} GB")
+    out["refresh"] = dict(
+        removed=churn, added=churn, version=version, seconds=done_s,
+        worker_s=apply_s, assemble_s=split["assemble"],
+        upload_s=split["upload"], flip_s=split["flip"],
+        max_staleness_s=stale, requests=n_req, rows_per_version=rows,
+        hot_swaps=hot, cold_swaps=eng.cold_swaps,
+        unexpected_specializations=unexpected,
+        quiet_batch_ms=[t * 1e3 for t in quiet],
+        during_batch_ms=[t * 1e3 for t in during],
+        after_batch_ms=[t * 1e3 for t in after], peak_gb=peak / 1e9)
+    launches = run.launches
+    del eng, retriever, run, sets, delta
+    del idx["registry"]  # and its version-2 store; idx["store"] is version 1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) a cold swap: a snapshot outgrows a zero-headroom envelope
+    def catalog(n):
+        s = sorted_unique_sids(rng.integers(0, V, (n, L)))
+        return ItemCatalog(sids=s, age_days=rng.uniform(0.0, 90.0, len(s)),
+                           category=rng.integers(0, 8, len(s)))
+
+    reg2 = registry(headroom=0.0)
+    store2 = reg2.build(catalog(COLD_ITEMS))
+    eng2 = ServingEngine(
+        params, cfg, batch_size=B, max_len=2 * S, registry=reg2,
+        retriever=GenerativeRetriever(params, cfg, DecodePolicy.stacked(store2),
+                                      L, V, beam_size=M))
+    run2 = EngineRun(eng2, rng, n_sparse)
+    run2.serve(range(B))
+    sets = {1: slot_sets(reg2)}
+    with AsyncRefresher(reg2) as ref:
+        version = ref.swap_async(catalog(COLD_SNAPSHOT)).result()
+    if version != 2 or reg2.envelope_generation != 2:
+        raise AssertionError(f"(c): version {version}, envelope generation "
+                             f"{reg2.envelope_generation}")
+    specs = []
+    for _ in range(2):
+        c0 = compile_events()
+        run2.serve(range(B))
+        specs.append(compile_events() - c0)
+    recompiles = eng2.metrics.counter("serving_recompiles_total")
+    if (eng2.cold_swaps != 1 or specs != [1, 0]
+            or recompiles.value(expected="true") != 2
+            or recompiles.value(expected="false")):
+        raise AssertionError(f"(c): {eng2.cold_swaps} cold swaps, "
+                             f"specializations {specs}")
+    sets[2] = slot_sets(reg2)
+    rows = check_versions(run2.results, sets)
+    grown = reg2.current()[0]
+    log(f"  (c) {COLD_ITEMS} items at headroom 0, then a {COLD_SNAPSHOT}-item"
+        f" snapshot: cold swap to {grown.n_states} states per member (was "
+        f"{store2.n_states}); specializations on the next two batches "
+        f"{specs}; rows per version {rows}, 100% compliant, queue drained")
+    out["cold"] = dict(cold_swaps=eng2.cold_swaps, specializations=specs,
+                       n_states=[store2.n_states, grown.n_states],
+                       rows_per_version=rows)
+    launches += run2.launches
+    del eng2, run2, reg2, store2, grown
+
+    # (d) plain-LM mode: greedy generation against a manual loop
+    lm = ServingEngine(params, cfg, batch_size=2, max_len=S + 4)
+    prompts = rng.integers(0, cfg.vocab_size, (2, S))
+    tokens = lm.generate(prompts, 4)
+    with torch.inference_mode():
+        logits, cache = transformer.prefill(
+            params, torch.as_tensor(prompts, device=params["emb"].device), cfg,
+            max_len=S + 4)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        manual = [tok]
+        for _ in range(3):
+            logits, cache = transformer.decode_step(params, cache, tok, cfg)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            manual.append(tok)
+        manual = torch.cat(manual, 1).cpu().numpy()
+    if not np.array_equal(tokens, manual):
+        raise AssertionError("(d): generate differs from prefill/decode_step")
+    log(f"  (d) ServingEngine.generate, greedy, B=2, 4 tokens: equal to a "
+        f"manual prefill/decode_step loop ({tokens.tolist()})")
+    out["generate_equal"] = True
+    out["launches"] = launches
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the paper's Table 1 baselines (§5.2) beside STATIC
 # ---------------------------------------------------------------------------
 TRIE_SIDS = 200_000  # the CPU trie's cut (benchmarks/table1_latency.py:133)
 STEP_CALLS, STEP_REPS = 20, 7  # Phase 1-2 calls per sample, samples
@@ -1568,7 +1901,7 @@ def phase_baseline_retrieve(single, policies, idx, tm_cut, table,
 
 
 # ---------------------------------------------------------------------------
-# phases 7-8: the EmbeddingBag kernel and the recsys path
+# phases 8-9: the EmbeddingBag kernel and the recsys path
 # ---------------------------------------------------------------------------
 BAG_SOURCE = "src/repro_torch/kernels/csrc/embedding_bag.cu"
 BAG_REPLACES = "src/repro/kernels/embedding_bag.py:51"
@@ -2059,7 +2392,16 @@ def main() -> int:
     log("phase 5: stacked path")
     stacked = phase_stacked(args, rng, params, cfg, idx)
     launches.update({k: v for k, v in stacked.items() if "stacked" in k})
-    log("phase 6: Table 1 baselines beside STATIC")
+    gc.collect()  # phase 5's retrievers and slabs
+    torch.cuda.empty_cache()
+    log("phase 6: batch serving with a live catalog refresh")
+    t0 = time.time()
+    engine, engine_launches = phase_engine(args, params, cfg, idx)
+    launches["vntk_stacked_topk"] += engine_launches
+    engine["seconds"] = time.time() - t0
+    print(json.dumps({"engine": engine}), flush=True)
+    log(f"  phase 6 took {engine['seconds']:.1f}s")
+    log("phase 7: Table 1 baselines beside STATIC")
     t0 = time.time()
     table_rng = np.random.default_rng([args.seed, 6])  # later phases unmoved
     policies, cut, tm_cut = baseline_policies(table_rng, idx)
@@ -2068,26 +2410,26 @@ def main() -> int:
                             probe_seed=args.seed + 1)
     table1["seconds"] = time.time() - t0
     print(json.dumps({"table1": table1}), flush=True)
-    log(f"  phase 6 took {table1['seconds']:.1f}s")
-    peaks = [torch.cuda.max_memory_allocated()]  # phases 1-6
+    log(f"  phase 7 took {table1['seconds']:.1f}s")
+    peaks = [torch.cuda.max_memory_allocated()]  # phases 1-7
     del idx, params, single, policies, tm_cut
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"phase 7: embedding bag kernel vs plain version (retrieval state "
+    log(f"phase 8: embedding bag kernel vs plain version (retrieval state "
         f"released: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
     torch.cuda.reset_peak_memory_stats()
     bag_rows = phase_bag_kernel(args.seed)
     peaks.append(torch.cuda.max_memory_allocated())
-    log(f"  phase 7 peak device memory {peaks[-1] / 1e9:.1f} GB")
-    log("phase 8: recsys path")
+    log(f"  phase 8 peak device memory {peaks[-1] / 1e9:.1f} GB")
+    log("phase 9: recsys path")
     torch.cuda.reset_peak_memory_stats()
     bag_launches = phase_recsys(args, rng)
     peaks.append(torch.cuda.max_memory_allocated())
-    log(f"  phase 8 peak device memory {peaks[-1] / 1e9:.1f} GB")
+    log(f"  phase 9 peak device memory {peaks[-1] / 1e9:.1f} GB")
 
     peak = max(peaks)
-    log(f"phase 9: report ({time.time() - t_start:.1f}s total; peak device "
+    log(f"phase 10: report ({time.time() - t_start:.1f}s total; peak device "
         f"memory {peak / 1e9:.1f} GB)")
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",

@@ -284,14 +284,18 @@ def _stack(mats, n_states: int, n_edges: int, device) -> dict:
 
 def _pad_member(tm: TransitionMatrix, name: str, n_states: int, n_edges: int,
                 out: torch.Tensor) -> None:
-    """Write one member table, padded to the envelope, into ``out``."""
-    a = getattr(tm, name).to(out.device)
+    """Write one member table, padded to the envelope, into ``out``.
+
+    A member on another device (a registry keeps its matrices on the host)
+    is copied straight into ``out``, with no temporary on ``out``'s device.
+    """
+    a = getattr(tm, name)
     if name == "row_pointers":
         # padded states get empty CSR rows: repeat the final pointer
-        out[: tm.n_states + 1] = a[: tm.n_states + 1]
-        out[tm.n_states + 1:] = a[tm.n_states]
+        out[: tm.n_states + 1].copy_(a[: tm.n_states + 1])
+        out[tm.n_states + 1:] = out[tm.n_states]
     elif name == "edges":
-        out[: a.shape[0]] = a
+        out[: a.shape[0]].copy_(a)
         out[a.shape[0]:] = 0
     else:  # dense tables are fixed-shape given (V, dense_d)
         out.copy_(a)

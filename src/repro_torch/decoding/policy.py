@@ -170,6 +170,26 @@ class DecodePolicy:
         return b.mask_step(lp, nodes, step, prefix_tokens=prefix_tokens,
                            constraint_ids=cids)
 
+    def plan_info(self, beams: int = 1) -> list:
+        """Machine-readable per-level plan for telemetry (DESIGN.md §9): one
+        dict per level of ``plan`` with the backend masking it, whether the
+        level is sparse, whether it takes the candidate-compressed branch,
+        and the per-beam top-C width for ``beams`` there (0 otherwise).
+        Static metadata, unchanged by a hot swap."""
+        rows = []
+        for step in range(len(self.plan)):
+            b = self.backend_for(step)
+            topk = self.supports_topk_at(step)
+            rows.append(dict(
+                level=step,
+                backend=type(b).__name__.replace("Backend", "").lower(),
+                sparse=getattr(b, "levels", None) != "dense",
+                topk=topk,
+                candidate_width=(self.candidate_width(beams, step)
+                                 if topk else 0),
+            ))
+        return rows
+
     def describe(self) -> str:
         """Human-readable per-level plan, e.g. ``L0-1:dense-bitpack
         L2-7:vntk[auto+topk]`` (``auto``: kernel on the card, plain on

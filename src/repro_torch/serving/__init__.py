@@ -1,4 +1,5 @@
-"""Serving surfaces of the port."""
+"""Serving surfaces of the port: the retriever and the batch engine."""
+from repro_torch.serving.engine import Request, RequestQueue, ServingEngine
 from repro_torch.serving.generative_retrieval import GenerativeRetriever
 
-__all__ = ["GenerativeRetriever"]
+__all__ = ["GenerativeRetriever", "ServingEngine", "RequestQueue", "Request"]

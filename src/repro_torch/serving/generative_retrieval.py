@@ -18,7 +18,11 @@ matrix or store.  A swap is *hot* when it changes no tensor shape, dtype or
 static field of the policy (``n_states``, ``n_edges``, ``level_bmax``,
 ``num_sets``, ...): then nothing keyed on those shapes (a captured CUDA
 graph, say) needs rebuilding.  That is the port's form of the reference's
-zero-recompile promise.
+zero-recompile promise.  ``retrieve`` counts each key it has not run under
+before, ``(_signature(policy), history shape, whether constraint ids are
+given)``, as one specialization
+(:func:`repro_torch.observability.compile_events`): the first batch counts
+1, a hot swap 0, a cold swap 1.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.beam_search import beam_search
 from repro_torch.decoding import as_policy
 from repro_torch.models import transformer
+from repro_torch.observability.timing import record_specialization
 
 __all__ = ["GenerativeRetriever"]
 
@@ -53,6 +58,7 @@ class GenerativeRetriever:
         self.V = sid_vocab
         self.M = beam_size
         self.device = params["emb"].device
+        self._specializations = set()  # keys retrieve has run under
         for b in self.policy.backends:
             if b.device is not None and b.device != self.device:
                 raise ValueError(f"{type(b).__name__} tables on {b.device}, "
@@ -97,6 +103,10 @@ class GenerativeRetriever:
                 raise ValueError(
                     f"constraint_ids must be in [0, {num_sets}), got "
                     f"range [{cids.min()}, {cids.max()}]")
+        key = (_signature(self.policy), np.shape(history), cids is not None)
+        if key not in self._specializations:
+            self._specializations.add(key)
+            record_specialization()
         with torch.inference_mode():
             hist = torch.as_tensor(np.asarray(history, np.int64),
                                    device=self.device)

@@ -14,13 +14,27 @@ two paths (one warp holds the slots up to bmax 32, the block scatters them
 above) for each of its eight, with their 16-byte and scalar loads and
 stores.  The §5.2 baselines have no kernel: their masks on CUDA tensors
 must equal their masks on the CPU, and an unconstrained beam search runs on
-the card with no VNTK launch.
+the card with no VNTK launch.  A small batch engine serves on the card
+through a hot and a cold swap that an ``AsyncRefresher`` builds on its own
+stream, and a CUDA out-of-memory error in the refresher's build fails its
+future while the old store keeps serving.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.constraints import ConstraintStore
+from repro_torch.configs.base import TransformerConfig
+from repro_torch.constraints import (
+    AsyncRefresher,
+    CatalogDelta,
+    ConstraintRegistry,
+    ConstraintStore,
+    ItemCatalog,
+    category_allowlist,
+    freshness_window,
+)
 from repro_torch.core import baselines
 from repro_torch.core.beam_search import beam_search
 from repro_torch.core.compressed_slab import CompressedSlab
@@ -31,6 +45,9 @@ from repro_torch.decoding import DecodePolicy
 from repro_torch.kernels import embedding_bag as bag
 from repro_torch.kernels import ops
 from repro_torch.kernels import vntk as kv
+from repro_torch.models import transformer
+from repro_torch.observability import compile_events
+from repro_torch.serving import GenerativeRetriever, RequestQueue, ServingEngine
 
 
 def _card():
@@ -320,3 +337,110 @@ def test_unconstrained_beam_search_on_the_card_launches_no_kernel(rng):
     assert torch.equal(runs["cuda"].nodes.cpu(), runs["cpu"].nodes)
     torch.testing.assert_close(runs["cuda"].scores.cpu(), runs["cpu"].scores,
                                rtol=1e-6, atol=1e-6)
+
+
+def _catalog(rng, n, V, L):
+    sids = np.unique(rng.integers(0, V, (n, L)), axis=0)
+    return ItemCatalog(sids=sids, age_days=rng.uniform(0, 60, len(sids)),
+                       category=rng.integers(0, 4, len(sids)))
+
+
+def _registry(V, headroom, streams=None):
+    """Two slots; ``streams`` collects the stream each predicate ran on."""
+    def fresh(cat):
+        if streams is not None:
+            streams.append((threading.current_thread().name,
+                            torch.cuda.current_stream()))
+        return cat.age_days <= 45
+    reg = ConstraintRegistry(V, headroom=headroom)  # on the card
+    reg.register("fresh", fresh)
+    reg.register("cats", category_allowlist(0, 1, 2))
+    return reg
+
+
+@pytest.mark.gpu
+def test_engine_hot_and_cold_swap_on_the_card(rng):
+    _card()
+    V, L = 32, 4
+    cfg = TransformerConfig(name="gr-tiny", n_layers=2, d_model=32,
+                            n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=34,
+                            dtype="float32", tie_embeddings=True)
+    params = transformer.init_params(cfg, 0, device="cuda")
+    streams = []
+    reg = _registry(V, headroom=0.5, streams=streams)
+    cat = _catalog(rng, 120, V, L)
+    store = reg.build(cat)
+    assert store.device.type == "cuda"
+    eng = ServingEngine(params, cfg, 4, 24, registry=reg,
+                        retriever=GenerativeRetriever(params, cfg, store, L, V,
+                                                      beam_size=4))
+
+    def serve(n, version):
+        q = RequestQueue()
+        rids = [q.submit(rng.integers(0, 34, (8,)), n_tokens=L,
+                         constraint_id=i % 2) for i in range(n)]
+        kv.reset_launches()
+        c0 = compile_events()
+        results = eng.serve(q)
+        assert set(results) == set(rids) and len(q) == 0
+        sets = [{tuple(r) for r in reg.slot_sids(s).astype(np.int64)}
+                for s in range(2)]
+        for r in results.values():
+            assert r["store_version"] == version
+            for sid, score in zip(r["sids"], r["scores"]):
+                if score > NEG_INF / 2:
+                    assert tuple(int(t) for t in sid) in sets[r["constraint_id"]]
+        # the stacked topk kernel on each of the L - dense_d sparse levels
+        batches = -(-n // 4)
+        assert kv.LAUNCHES["vntk_stacked_topk"] == batches * (L - 2)
+        assert sum(kv.LAUNCHES.values()) == batches * (L - 2)
+        return compile_events() - c0
+
+    assert serve(6, 1) == 1  # the first batch specializes
+    with AsyncRefresher(reg) as ref:
+        delta = CatalogDelta(removed_sids=cat.sids[:10],  # fits the envelope
+                             added=_catalog(rng, 5, V, L))
+        assert ref.apply_delta_async(delta).result(timeout=120) == 2
+        assert serve(6, 2) == 0  # hot
+        assert ref.swap_async(_catalog(rng, 900, V, L)).result(  # outgrows it
+            timeout=120) == 3
+        assert serve(5, 3) == 1  # cold: exactly one
+        assert serve(3, 3) == 0
+    assert reg.envelope_generation == 2 and eng.cold_swaps == 1
+    assert reg.current()[0].device.type == "cuda"
+    # the predicate ran in the refresher's worker for the delta's added
+    # items and for the snapshot, on a stream of the worker's own
+    worker = [st for name, st in streams if name == "constraint-refresh"]
+    assert len(worker) == 2
+    for st in worker:
+        assert st != torch.cuda.default_stream()
+
+
+@pytest.mark.gpu
+def test_refresher_oom_on_the_card_fails_the_future(rng):
+    """A CUDA out-of-memory error while the back buffer is built resolves
+    the future with it; the old store keeps serving and no half-built
+    buffer stays allocated."""
+    _card()
+    V, L = 2048, 3  # dense l1 tables of V x V: 16 MB a slot
+    reg = _registry(V, headroom=0.5)
+    store = reg.build(_catalog(rng, 4000, V, L))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    before = torch.cuda.memory_allocated()
+    # room for what is cached now plus 8 MB: the back buffer needs ~66 MB
+    torch.cuda.set_per_process_memory_fraction(
+        (torch.cuda.memory_reserved() + (8 << 20)) / total)
+    try:
+        with AsyncRefresher(reg) as ref:
+            fut = ref.apply_delta_async(CatalogDelta(
+                removed_sids=reg.slot_sids(0)[:5].astype(np.int64)))
+            with pytest.raises(torch.OutOfMemoryError):
+                fut.result(timeout=120)
+            assert ref.failed == 1
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    assert reg.current() == (store, 1)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
