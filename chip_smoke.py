@@ -121,7 +121,44 @@ Phases (any failure raises and the script exits non-zero):
               tokens, equal to a manual ``prefill``/``decode_step`` loop.
               One ``{"engine": ...}`` JSON line carries the numbers; the
               engine's stacked topk launches join that kernel's row.
-7. table1   — the paper's Table 1 baselines (§5.2) beside STATIC, while
+7. continuous — ``ContinuousServingEngine`` (DESIGN.md §10) serving
+              static-gr-3b at full width over the five slots of phase 2's
+              catalog, rebuilt by ``ConstraintRegistry(V, dense_d=0,
+              headroom=0.5).build`` (build seconds, GB and level bmax
+              printed): its level-free mask is the stacked mask kernel's
+              block path, at the store's global bmax (the root width under
+              the headroom, above V).  (i) Equal shapes: 5 slots, prefill
+              chunk 5, page size 16, no share width; ten requests, two per
+              slot, every fourth prompt a copy of the one four before; the
+              same requests through ``ServingEngine(batch_size=5)`` over the
+              same registry must give bit-equal SIDs and scores per
+              request.  (ii) Mixed levels: prefill chunk 2, share width 175
+              (half of the 350 rows, so the shared and the full branch both
+              run); twenty requests over lanes 8/4/4/2/2 in three waves 3
+              engine steps apart, so slots sit at different levels: none
+              dropped, slot reuse and both share-hit kinds above 0, the page
+              pool consistent after the drain; against ``ServingEngine`` on
+              the same requests the shares of equal SIDs and of bit-equal
+              scores and the largest score difference are printed.  (iii)
+              A 100,000-item dense_d=0 registry at headroom 0.5: serve,
+              ``registry.swap`` of a churned catalog within headroom, serve
+              again: 0 specializations across the swap, no request dropped,
+              every row compliant with its version.  Every result must be
+              100% compliant; every continuous serve must launch the stacked
+              mask kernel once per step and no other VNTK kernel, and every
+              batch serve the stacked topk kernel L = 8 times per batch (the
+              counters are zeroed just before each serve and read just
+              after).  Printed: each run's median step ms and requests/s
+              beside the batch engine's, the unique-key count U of every
+              step, the page pool's utilization, and the phase's peak device
+              memory (which must stay under 80 GB).  Then the two block
+              routes are held against their plain versions and timed (CUDA
+              graphs, as in phase 3): the stacked mask kernel at nb = 350,
+              the global bmax and zero log-probs (the shared step's input)
+              on the engine's nodes after the second wave, and the stacked
+              topk kernel at levels 0-1 of the store (nb = 350, C = 72);
+              each is a ``..._block`` row of the JSON line.
+8. table1   — the paper's Table 1 baselines (§5.2) beside STATIC, while
               the catalog trie, the store and the model are on the card:
               DISC-PPV's sorted table of the whole catalog (exact, and
               approximate over the top 50), the hash bitmap of every prefix
@@ -159,7 +196,7 @@ Phases (any failure raises and the script exits non-zero):
               One ``{"table1": ...}`` JSON line carries the overheads (ms),
               the ratios of ``cpu_trie``, ``ppv_exact``, ``ppv_approx`` and
               ``hash_bitmap`` to ``static``, and each median retrieve ms.
-8. bag      — the retrieval phases' tensors released, the EmbeddingBag
+9. bag      — the retrieval phases' tensors released, the EmbeddingBag
               kernel (``csrc/embedding_bag.cu``) against its plain version
               on the card.  Single-table entry: the reference's sweep ((B,
               K, D) in (8, 1, 32), (16, 4, 128), (5, 7, 64); float32 and
@@ -183,7 +220,7 @@ Phases (any failure raises and the script exits non-zero):
               the library yardstick (``F.embedding_bag``; for a group, its
               per-table calls in one CUDA graph; used nowhere in the port)
               are timed at the path's shapes as in phase 3.
-9. recsys   — wide-deep at its published size (40 tables of 32 floats and
+10. recsys  — wide-deep at its published size (40 tables of 32 floats and
               40 wide tables, 111,104,000 padded rows, 14.7 GB, seeded on the
               card) through ``recsys.forward`` at the reference's
               ``serve_p99`` (B = 512) and ``serve_bulk`` (B = 262,144)
@@ -198,10 +235,10 @@ Phases (any failure raises and the script exits non-zero):
               published size (10M x 64 items) at ``retrieval_cand`` (1M
               candidates, no bag launch): finite scores.  The phase's peak
               device memory is printed.
-10. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
+11. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
               with a row per kernel function (a VNTK row with the ``path``
               its main-path levels took, ``warp`` or ``block``, for topk
-              and mask alike; for the bag,
+              and mask alike, and phase 7's two ``block`` rows; for the bag,
               one per timed shape, each with its load ``path``; a
               single-table row counts the main path's launches at its
               per-table (B, K, D), all of them grouped), then the last line
@@ -294,13 +331,15 @@ def slot_predicates() -> dict:
             for name, (kind, arg) in SLOTS.items()}
 
 
-def registry(headroom=HEADROOM):
-    """A ConstraintRegistry on the card with the five slots registered."""
+def registry(headroom=HEADROOM, dense_d=None):
+    """A ConstraintRegistry on the card with the five slots registered (at
+    the config's dense_d unless given)."""
     from repro_torch.configs import static_gr
     from repro_torch.constraints import ConstraintRegistry
 
-    reg = ConstraintRegistry(static_gr.SID_VOCAB, dense_d=static_gr.DENSE_D,
-                             headroom=headroom, device="cuda")
+    reg = ConstraintRegistry(
+        static_gr.SID_VOCAB, headroom=headroom, device="cuda",
+        dense_d=static_gr.DENSE_D if dense_d is None else dense_d)
     for name, pred in slot_predicates().items():
         reg.register(name, pred)
     return reg
@@ -1610,7 +1649,366 @@ def phase_engine(args, params, cfg, idx):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the paper's Table 1 baselines (§5.2) beside STATIC
+# phase 7: continuous batching over the level-free mask
+# ---------------------------------------------------------------------------
+CONT_PAGE = 16  # page size of the history pool (256-token prompts: 16 pages)
+CONT_SHARE = 175  # (ii): U, half of the 350 rows: both branches run
+CONT_WAVES = (7, 7, 6)  # (ii): requests per wave, 3 engine steps apart
+HOT_ITEMS = 100_000  # (iii): the hot-swap registry's catalog
+
+
+class StepClock:
+    """Times each step of a continuous engine (host clock between two
+    synchronizes) and samples the page pool's utilization after it."""
+
+    def __init__(self, eng):
+        self.ms, self.util = [], []
+        self.unique = []  # the policy's key count U of each step
+        step = eng._run_step
+
+        def timed():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.util.append(eng.alloc.utilization())
+
+        eng._run_step = timed
+
+
+def cont_prompts(rng, n, S, vocab):
+    """Seeded prompts, every fourth a copy of the one four before (prompt
+    sharing)."""
+    p = rng.integers(0, vocab, (n, S))
+    for i in range(4, n, 4):
+        p[i] = p[i - 4]
+    return p
+
+
+def submit_all(queue, prompts, lanes, L):
+    return [queue.submit(p, n_tokens=L, constraint_id=k)
+            for p, k in zip(prompts, lanes)]
+
+
+def serve_counted(eng, queue, want, **kw):
+    """``eng.serve`` with the VNTK launch counters zeroed just before and
+    read just after; ``want(launches)`` returns the expected counts."""
+    from repro_torch.kernels import vntk as kv
+
+    torch.cuda.synchronize()
+    kv.reset_launches()  # this serve's run starts here
+    t0 = time.perf_counter()
+    res = eng.serve(queue, **kw)
+    dt = time.perf_counter() - t0
+    rose = dict(kv.LAUNCHES)  # ... and ends here
+    expected = want(rose)
+    if rose != expected:
+        raise AssertionError(f"launches {rose}, expected {expected}")
+    return res, dt, rose
+
+
+def only(name, n):
+    """Expected counters: ``n`` launches of ``name``, none of the others."""
+    from repro_torch.kernels import vntk as kv
+
+    return {k: (n if k == name else 0) for k in kv.LAUNCHES}
+
+
+def check_results(label, results, rids, sets):
+    """Every request served (none dropped) and every live beam in its
+    slot's set."""
+    for rid in rids:
+        r = results.get(rid)
+        if r is None or "sids" not in r:
+            raise AssertionError(f"{label}: request {rid} dropped: {r}")
+        check_compliance(f"{label} request {rid} (slot {r['constraint_id']})",
+                         sets[r["constraint_id"]], r["sids"][None],
+                         r["scores"][None])
+
+
+def block_rows(rng, store, nodes, cids, M, launches):
+    """The two untimed block routes at this phase's shapes, against their
+    plain versions and timed as in phase 3: the stacked mask kernel at nb =
+    5*M rows, the store's global bmax and zero log-probs (the shared step's
+    input), on the engine's nodes; the stacked topk kernel at levels 0-1
+    (nb = 5*M, C = 72), each row on its own member's level."""
+    from repro_torch.core.vntk import candidate_width
+    from repro_torch.kernels import vntk as kv
+
+    V, K = store.vocab_size, store.num_sets
+    rp, edges = store.row_pointers, store.edges
+    bmax = max(store.level_bmax)
+    nb, C = nodes.shape[0], candidate_width(M, V)
+    mask = KernelCheck("vntk_stacked_mask")
+    zeros = torch.zeros((nb, V), device="cuda")
+    mask.compare("level-free rows, zero log-probs", zeros, nodes, cids,
+                 (rp, edges), bmax, V, C)
+    mask.time(zeros, nodes, cids, (rp, edges), bmax, V, C)
+    topk = KernelCheck("vntk_stacked_topk")
+    tcids = cuda_ints(np.repeat(np.arange(K), -(-nb // K))[:nb])
+    for level in (0, 1):
+        b = store.bmax_for_step(level)
+        if kv.topk_path(b) != "block":
+            raise AssertionError(f"level {level}: bmax {b} takes the warp "
+                                 "route")
+        if level == 0:
+            lnodes = torch.ones(nb, dtype=torch.int32, device="cuda")
+        else:  # a level-1 node of each row's member: a child of its root
+            k = tcids.long()
+            root = rp[:, 1:3].cpu().numpy()[k.cpu().numpy()]
+            slot = cuda_ints(rng.integers(root[:, 0], root[:, 1])).long()
+            lnodes = edges[k, slot, 1].contiguous()
+        values = make_values(rng, nb, V, False)
+        topk.compare(f"level {level}", values, lnodes, tcids, (rp, edges), b,
+                     V, C)
+        topk.time(values, lnodes, tcids, (rp, edges), b, V, C)
+    rows = []
+    for chk, n in ((mask, launches["mask"]), (topk, launches["topk"])):
+        ms, plain_ms, bound = np.mean(chk.times, axis=0)
+        log(f"  {chk.name} block route: equal to plain; {ms * 1e3:.2f} us "
+            f"(plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us) per "
+            f"launch at nb {nb}, bmax {bmax if chk is mask else 'of levels 0-1'}"
+            f"; {n} launches in this phase's runs")
+        rows.append(dict(
+            name=f"{chk.name}_block", route="cuda", source=VNTK_SOURCE,
+            replaces=chk.replaces, launches=n, max_abs_err=chk.max_abs_err,
+            ms=float(ms), plain_ms=float(plain_ms), bound_ms=float(bound),
+            bound_by="bytes", library_ms=None, path="block"))
+    return rows
+
+
+def phase_continuous(args, params, cfg, idx):
+    """(i) equal shapes against ServingEngine, (ii) mixed levels, (iii) a
+    hot swap, then the two block routes timed; returns the JSON record and
+    the kernel rows."""
+    from repro_torch.configs import static_gr
+    from repro_torch.constraints import ItemCatalog
+    from repro_torch.core.trie import sorted_unique_sids
+    from repro_torch.decoding import DecodePolicy
+    from repro_torch.kernels import vntk as kv
+    from repro_torch.observability import compile_events
+    from repro_torch.serving import GenerativeRetriever, RequestQueue, ServingEngine
+    from repro_torch.serving.continuous import ContinuousServingEngine
+
+    rng = np.random.default_rng([args.seed, 8])  # later phases unmoved
+    L, V, M = static_gr.SID_LENGTH, static_gr.SID_VOCAB, static_gr.BEAM_SIZE
+    S = static_gr.HISTORY_LEN
+    t0 = time.time()
+    reg = registry(dense_d=0)
+    store = reg.build(idx["catalog"])
+    build_s = time.time() - t0
+    bmax = max(store.level_bmax)
+    log(f"  ConstraintRegistry.build of {len(SLOTS)} slots at dense_d=0, "
+        f"headroom {HEADROOM}: {store.n_states} states and {store.n_edges} "
+        f"edge rows per member, level bmax {list(store.level_bmax)}, "
+        f"{store.nbytes() / 1e9:.3f} GB on the card in {build_s:.1f}s")
+    B, sets = store.num_sets, idx["slot_sids"]
+    retr = GenerativeRetriever(params, cfg, DecodePolicy.stacked(store), L, V,
+                               beam_size=M)
+    batch = ServingEngine(params, cfg, batch_size=B, max_len=2 * S,
+                          retriever=retr, registry=reg)
+    topk_block = sum(kv.topk_path(store.bmax_for_step(s)) == "block"
+                     for s in range(L))
+    out = dict(registry_build_s=build_s, store_gb=store.nbytes() / 1e9,
+               level_bmax=list(store.level_bmax))
+    launches = dict(mask=0, topk=0)
+
+    def run_batch(prompts, lanes):
+        q = RequestQueue()
+        rids = submit_all(q, prompts, lanes, L)
+        n0 = batch.metrics.counter("serving_batches_total").total()
+        res, dt, rose = serve_counted(
+            batch, q, lambda r: only("vntk_stacked_topk",
+                                     r["vntk_stacked_topk"]))
+        n = batch.metrics.counter("serving_batches_total").total() - n0
+        if rose["vntk_stacked_topk"] != L * n:
+            raise AssertionError(f"batch engine: {rose} over {n} batches")
+        launches["topk"] += topk_block * int(n)
+        check_results("batch engine", res, rids, sets)
+        return res, dt, int(n)
+
+    def engine(prefill_chunk, share_width):
+        c0 = compile_events()
+        eng = ContinuousServingEngine(
+            retr, registry=reg, slots=B, prompt_width=S, page_size=CONT_PAGE,
+            prefill_chunk=prefill_chunk, share_width=share_width)
+        if compile_events() - c0 != 1:
+            raise AssertionError("warm-up did not specialize the step once")
+        return eng, StepClock(eng)
+
+    def run_cont(eng, clock, q, **kw):
+        n0 = len(clock.ms)
+        res, dt, rose = serve_counted(
+            eng, q, lambda r: only("vntk_stacked_mask",
+                                   len(clock.ms) - n0), **kw)
+        launches["mask"] += rose["vntk_stacked_mask"]
+        clock.unique += eng.unique_per_step
+        return res, dt
+
+    def summary(clock, n_req, dt, bdt, n_batches):
+        return dict(requests=n_req, seconds=dt, requests_per_s=n_req / dt,
+                    steps=len(clock.ms), step_ms_median=float(
+                        np.median(clock.ms)), step_ms=clock.ms,
+                    mask_launches_per_step=1, unique_per_step=clock.unique,
+                    page_util_max=max(clock.util), batch_seconds=bdt,
+                    batch_requests_per_s=n_req / bdt, batches=int(n_batches),
+                    batch_ms=bdt / n_batches * 1e3)
+
+    torch.cuda.synchronize()
+    # (i) equal shapes: every matrix product has the batch engine's shape
+    n_req = 2 * B
+    prompts = cont_prompts(rng, n_req, S, cfg.vocab_size)
+    lanes = [i % B for i in range(n_req)]
+    bres, bdt, nb_i = run_batch(prompts, lanes)
+    eng, clock = engine(prefill_chunk=B, share_width=None)
+    q = RequestQueue()
+    rids = submit_all(q, prompts, lanes, L)
+    res, dt = run_cont(eng, clock, q)
+    check_results("(i)", res, rids, sets)
+    for rid in rids:
+        if not (np.array_equal(res[rid]["sids"], bres[rid]["sids"])
+                and np.array_equal(res[rid]["scores"], bres[rid]["scores"])):
+            raise AssertionError(f"(i): request {rid} differs from "
+                                 "ServingEngine(batch_size=5)")
+    hits = eng.metrics.counter("serving_prefix_share_hits_total")
+    out["equal_shapes"] = summary(clock, n_req, dt, bdt, nb_i)
+    out["equal_shapes"].update(prompt_hits=hits.value(kind="prompt"),
+                               bit_equal=True)
+    log(f"  (i) slots {B}, prefill chunk {B}, page {CONT_PAGE}, share width "
+        f"None: {n_req} requests bit-equal to ServingEngine(batch_size={B}) "
+        f"(SIDs and scores), 100% compliant; {len(clock.ms)} steps, median "
+        f"step {np.median(clock.ms):.1f} ms, {n_req / dt:.2f} requests/s "
+        f"(batch engine: {nb_i} batches, {n_req / bdt:.2f} requests/s, "
+        f"{bdt / max(nb_i, 1) / L * 1e3:.1f} ms per level); 1 mask launch "
+        f"per step; U per step {clock.unique}; page pool up to "
+        f"{max(clock.util):.3f}; prompt share hits "
+        f"{int(hits.value(kind='prompt'))}")
+    eng.alloc.check()
+    del eng, clock
+    gc.collect()
+
+    # (ii) mixed levels: three waves, 3 engine steps apart
+    lanes = [lane for lane, n in enumerate(ENGINE_BURST) for _ in range(n)]
+    n_req = len(lanes)
+    prompts = cont_prompts(rng, n_req, S, cfg.vocab_size)
+    eng, clock = engine(prefill_chunk=2, share_width=CONT_SHARE)
+    q, res, rids, dt, start = RequestQueue(), {}, [], 0.0, 0
+    for w, n in enumerate(CONT_WAVES):
+        rids += submit_all(q, prompts[start:start + n],
+                           lanes[start:start + n], L)
+        start += n
+        last = w == len(CONT_WAVES) - 1
+        got, t = run_cont(eng, clock, q, **({} if last else {"max_steps": 3}))
+        res.update(got)
+        dt += t
+        if w == 1:  # slots at different levels: the timed mask rows
+            levels = eng.sched.levels()
+            nodes = eng._nodes.reshape(-1).clone()
+            cids = cuda_ints(np.repeat(eng._cids, M))
+    if len(q) or eng.sched.n_live:
+        raise AssertionError("(ii): the engine did not drain")
+    check_results("(ii)", res, rids, sets)
+    eng.alloc.check()
+    hits = eng.metrics.counter("serving_prefix_share_hits_total")
+    reuse = int(eng.metrics.counter("serving_slot_reuse_total").total())
+    if not (reuse > 0 and hits.value(kind="prompt") > 0
+            and hits.value(kind="mask_row") > 0):
+        raise AssertionError(f"(ii): slot reuse {reuse}, share hits "
+                             f"{hits.value(kind='prompt')} prompt, "
+                             f"{hits.value(kind='mask_row')} mask rows")
+    shared = sum(u <= CONT_SHARE for u in clock.unique)
+    bres, bdt, nb_ii = run_batch(prompts, lanes)
+    same_sids = [np.array_equal(res[r]["sids"], bres[r]["sids"]) for r in rids]
+    same_scores = [np.array_equal(res[r]["scores"], bres[r]["scores"])
+                   for r in rids]
+    live = [np.abs(res[r]["scores"] - bres[r]["scores"])[
+        (res[r]["scores"] > -1e9) & (bres[r]["scores"] > -1e9)] for r in rids]
+    diff = float(max((d.max() for d in live if d.size), default=0.0))
+    out["mixed_levels"] = summary(clock, n_req, dt, bdt, nb_ii)
+    out["mixed_levels"].update(
+        slot_reuse=reuse, prompt_hits=hits.value(kind="prompt"),
+        mask_row_hits=hits.value(kind="mask_row"), shared_steps=shared,
+        host_syncs=len(clock.ms), levels_at_wave_2=levels.tolist(),
+        sids_equal_share=float(np.mean(same_sids)),
+        scores_bit_equal_share=float(np.mean(same_scores)),
+        max_score_diff=diff)
+    log(f"  (ii) slots {B}, prefill chunk 2, share width {CONT_SHARE}: "
+        f"{n_req} requests (lanes {ENGINE_BURST}) in waves {CONT_WAVES}, none "
+        f"dropped, 100% compliant, pool consistent; slot levels after wave 2 "
+        f"{levels.tolist()}; {len(clock.ms)} steps, median step "
+        f"{np.median(clock.ms):.1f} ms, {n_req / dt:.2f} requests/s (batch "
+        f"engine: {nb_ii} batches, {n_req / bdt:.2f} requests/s); 1 mask "
+        f"launch per step; U per step {clock.unique} ({shared} steps "
+        f"shared, {len(clock.ms) - shared} full; one host sync per step for "
+        f"the branch); slot reuse {reuse}, share hits "
+        f"{int(hits.value(kind='prompt'))} prompt, "
+        f"{int(hits.value(kind='mask_row'))} mask rows; page pool up to "
+        f"{max(clock.util):.3f}")
+    log(f"  (ii) against ServingEngine(batch_size={B}): SIDs equal for "
+        f"{np.mean(same_sids):.2f} of requests, scores bit-equal for "
+        f"{np.mean(same_scores):.2f}, largest live score difference {diff:g} "
+        "(prefill products of 2 rows against 5)")
+    del eng, clock, batch
+    gc.collect()
+
+    # (iii) a hot swap on a 100k-item dense_d=0 registry at full width
+    def catalog(n):
+        s = sorted_unique_sids(rng.integers(0, V, (n, L)))
+        return ItemCatalog(sids=s, age_days=rng.uniform(0.0, 90.0, len(s)),
+                           category=rng.integers(0, 8, len(s)))
+
+    reg_h = registry(dense_d=0)
+    store_h = reg_h.build(catalog(HOT_ITEMS))
+    retr_h = GenerativeRetriever(params, cfg, DecodePolicy.stacked(store_h),
+                                 L, V, beam_size=M)
+    c0 = compile_events()
+    eng = ContinuousServingEngine(
+        retr_h, registry=reg_h, slots=B, prompt_width=S, page_size=CONT_PAGE,
+        prefill_chunk=2, share_width=CONT_SHARE)
+    clock = StepClock(eng)
+    hot_sets = {1: slot_sets(reg_h)}
+    results = []
+    for version in (1, 2):
+        if version == 2:
+            reg_h.swap(catalog(HOT_ITEMS))
+            hot_sets[2] = slot_sets(reg_h)
+            c0 = compile_events()
+        q = RequestQueue()
+        rids = submit_all(q, cont_prompts(rng, 2 * B, S, cfg.vocab_size),
+                          [i % B for i in range(2 * B)], L)
+        res, _ = run_cont(eng, clock, q)
+        missing = [r for r in rids if "sids" not in res.get(r, {})]
+        if missing:
+            raise AssertionError(f"(iii): requests {missing} dropped")
+        results += [res[r] for r in rids]
+    specialized = compile_events() - c0
+    unexpected = int(eng.metrics.counter("serving_recompiles_total").value(
+        expected="false"))
+    hot = int(eng.metrics.counter("serving_hot_swaps_total").total())
+    if specialized or unexpected or eng.cold_swaps or hot != 2:
+        raise AssertionError(f"(iii): {specialized} specializations across "
+                             f"the swap, {unexpected} unexpected, "
+                             f"{eng.cold_swaps} cold, {hot} installs")
+    rows = check_versions(results, hot_sets)
+    eng.alloc.check()
+    out["hot_swap"] = dict(items=HOT_ITEMS, specializations=specialized,
+                           unexpected_specializations=unexpected,
+                           rows_per_version=rows)
+    log(f"  (iii) {HOT_ITEMS} items at dense_d=0, then a churned "
+        f"{HOT_ITEMS}-item swap within headroom: 0 specializations across it,"
+        f" 0 unexpected, no request dropped, rows per version {rows}, each "
+        "compliant with its version")
+    del eng, clock, retr_h, reg_h, store_h
+
+    rows = block_rows(rng, store, nodes, cids, M, launches)
+    if launches["mask"] == 0:
+        raise AssertionError("the stacked mask kernel never launched")
+    out["launches"] = launches
+    return out, rows
+
+# ---------------------------------------------------------------------------
+# phase 8: the paper's Table 1 baselines (§5.2) beside STATIC
 # ---------------------------------------------------------------------------
 TRIE_SIDS = 200_000  # the CPU trie's cut (benchmarks/table1_latency.py:133)
 STEP_CALLS, STEP_REPS = 20, 7  # Phase 1-2 calls per sample, samples
@@ -1901,7 +2299,7 @@ def phase_baseline_retrieve(single, policies, idx, tm_cut, table,
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: the EmbeddingBag kernel and the recsys path
+# phases 9-10: the EmbeddingBag kernel and the recsys path
 # ---------------------------------------------------------------------------
 BAG_SOURCE = "src/repro_torch/kernels/csrc/embedding_bag.cu"
 BAG_REPLACES = "src/repro/kernels/embedding_bag.py:51"
@@ -2401,7 +2799,23 @@ def main() -> int:
     engine["seconds"] = time.time() - t0
     print(json.dumps({"engine": engine}), flush=True)
     log(f"  phase 6 took {engine['seconds']:.1f}s")
-    log("phase 7: Table 1 baselines beside STATIC")
+    peaks = [torch.cuda.max_memory_allocated()]  # phases 1-6
+    log("phase 7: continuous batching over the level-free mask")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cont, cont_rows = phase_continuous(args, params, cfg, idx)
+    cont["seconds"] = time.time() - t0
+    peaks.append(torch.cuda.max_memory_allocated())
+    cont["peak_gb"] = peaks[-1] / 1e9
+    print(json.dumps({"continuous": cont}), flush=True)
+    log(f"  phase 7 took {cont['seconds']:.1f}s; peak device memory "
+        f"{peaks[-1] / 1e9:.1f} GB")
+    if peaks[-1] >= 80e9:
+        raise AssertionError("phase 7 peaked at or above 80 GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 8: Table 1 baselines beside STATIC")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     table_rng = np.random.default_rng([args.seed, 6])  # later phases unmoved
     policies, cut, tm_cut = baseline_policies(table_rng, idx)
@@ -2410,26 +2824,26 @@ def main() -> int:
                             probe_seed=args.seed + 1)
     table1["seconds"] = time.time() - t0
     print(json.dumps({"table1": table1}), flush=True)
-    log(f"  phase 7 took {table1['seconds']:.1f}s")
-    peaks = [torch.cuda.max_memory_allocated()]  # phases 1-7
+    log(f"  phase 8 took {table1['seconds']:.1f}s")
+    peaks.append(torch.cuda.max_memory_allocated())  # phase 8
     del idx, params, single, policies, tm_cut
     gc.collect()
     torch.cuda.empty_cache()
 
-    log(f"phase 8: embedding bag kernel vs plain version (retrieval state "
+    log(f"phase 9: embedding bag kernel vs plain version (retrieval state "
         f"released: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
     torch.cuda.reset_peak_memory_stats()
     bag_rows = phase_bag_kernel(args.seed)
     peaks.append(torch.cuda.max_memory_allocated())
-    log(f"  phase 8 peak device memory {peaks[-1] / 1e9:.1f} GB")
-    log("phase 9: recsys path")
+    log(f"  phase 9 peak device memory {peaks[-1] / 1e9:.1f} GB")
+    log("phase 10: recsys path")
     torch.cuda.reset_peak_memory_stats()
     bag_launches = phase_recsys(args, rng)
     peaks.append(torch.cuda.max_memory_allocated())
-    log(f"  phase 9 peak device memory {peaks[-1] / 1e9:.1f} GB")
+    log(f"  phase 10 peak device memory {peaks[-1] / 1e9:.1f} GB")
 
     peak = max(peaks)
-    log(f"phase 10: report ({time.time() - t_start:.1f}s total; peak device "
+    log(f"phase 11: report ({time.time() - t_start:.1f}s total; peak device "
         f"memory {peak / 1e9:.1f} GB)")
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -2444,6 +2858,7 @@ def main() -> int:
             max_abs_err=chk.max_abs_err, ms=float(ms),
             plain_ms=float(plain_ms), bound_ms=float(bound), bound_by="bytes",
             library_ms=None, path=chk.main_path()))
+    rows += cont_rows
     rows += bag_report(bag_rows, bag_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

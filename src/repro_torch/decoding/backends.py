@@ -2,16 +2,19 @@
 stacked multi-tenant :class:`~repro_torch.constraints.ConstraintStore`, and
 the paper's §5.2 baselines.
 
-Counterparts of ``repro.decoding.backends`` (without the level-free mask and
-``shardings``, which are not ported yet).  A backend masks one decode step
-and reports, vocab-aligned, where each token emission leads (DESIGN.md
-§3.1), or — on candidate-compressed levels — each beam's dense-rank top-C
-``(scores, tokens, next_states)`` (DESIGN.md §8).  The stacked backend keys
-every lookup on per-row ``constraint_ids`` (DESIGN.md §4).  With a
+Counterparts of ``repro.decoding.backends`` (without ``shardings``, which
+is not ported yet).  A backend masks one decode step and reports,
+vocab-aligned, where each token emission leads (DESIGN.md §3.1), or — on
+candidate-compressed levels — each beam's dense-rank top-C ``(scores,
+tokens, next_states)`` (DESIGN.md §8).  The stacked backend keys every
+lookup on per-row ``constraint_ids`` (DESIGN.md §4).  With a
 delta-compressed ``slab`` (DESIGN.md §11) every sparse lookup reads the
 slab's token deltas instead of the ``(token, next)`` pairs, with equal
-outputs.  The baseline backends mask by each beam's emitted tokens
-(``prefix_tokens``, ``needs_prefix``) and have no fused or candidate step.
+outputs.  Over an all-sparse index (``dense_d == 0``) the STATIC backends
+also mask rows at mixed decode levels in one call (``level_free_mask``,
+the continuous engine's step, DESIGN.md §10).  The baseline backends mask
+by each beam's emitted tokens (``prefix_tokens``, ``needs_prefix``) and
+have no fused or candidate step.
 
 ``device`` is the device of the tables a backend holds, or ``None`` for
 the host trie and the unconstrained step, which hold none.
@@ -141,6 +144,35 @@ class StaticBackend:
         return fn(values, nodes, self.tm.row_pointers, self.tm.edges,
                   self._bmax(step), self.tm.vocab_size, impl=self.impl)
 
+    @property
+    def supports_level_free(self) -> bool:
+        """True when ONE mask call can serve rows at different decode
+        levels (continuous batching): it needs an all-sparse index
+        (``dense_d == 0``), so every level, the root included, resolves
+        through the CSR and node ids are unique across levels.  The
+        compressed slab opts out: its next states derive from a per-level
+        base, so one call cannot serve mixed depths."""
+        return (self.levels != "dense" and self.tm.dense_d == 0
+                and self.slab is None)
+
+    def level_free_mask(self, log_probs, nodes, *, constraint_ids=None):
+        """Level-agnostic :meth:`mask_step`: rows may sit at different trie
+        depths.  A row's admissible set is its node's CSR row; ``bmax``
+        (the speculative burst's width) is the maximum over all levels and
+        only sizes the burst, so the outputs equal the per-level call's at
+        whatever level each node is on."""
+        _reject_constraint_ids(constraint_ids, "a single TransitionMatrix")
+        if not self.supports_level_free:
+            raise ValueError(
+                "level-free masking needs an all-sparse index (dense_d=0); "
+                f"this StaticBackend has dense_d={self.tm.dense_d}, "
+                f"levels={self.levels!r}, slab={self.slab is not None}")
+        bmax = max(max(self.tm.bmax_for_step(s)
+                       for s in range(self.tm.sid_length)), 1)
+        return kernel_ops.vntk(log_probs, nodes, self.tm.row_pointers,
+                               self.tm.edges, bmax, self.tm.vocab_size,
+                               impl=self.impl)
+
     def fused_step(self, logits, nodes, step, *, prefix_tokens=None,
                    constraint_ids=None):
         """Phases 1-2 in one pass on sparse steps; dense steps normalize
@@ -257,6 +289,30 @@ class StackedStaticBackend:
         return fn(values, nodes, self.store.row_pointers, self.store.edges,
                   self._bmax(step), self.store.vocab_size, impl=self.impl,
                   constraint_ids=constraint_ids)
+
+    @property
+    def supports_level_free(self) -> bool:
+        """See :attr:`StaticBackend.supports_level_free`; the stacked
+        variant keys every lookup on ``constraint_ids`` as well."""
+        return (self.levels != "dense" and self.store.dense_d == 0
+                and self.slab is None)
+
+    def level_free_mask(self, log_probs, nodes, *, constraint_ids=None):
+        """Level-agnostic stacked :meth:`mask_step` (see
+        :meth:`StaticBackend.level_free_mask`)."""
+        if constraint_ids is None:
+            raise ValueError(
+                "ConstraintStore lookups need per-row constraint_ids")
+        if not self.supports_level_free:
+            raise ValueError(
+                "level-free masking needs an all-sparse index (dense_d=0); "
+                f"this StackedStaticBackend has dense_d={self.store.dense_d}"
+                f", levels={self.levels!r}, slab={self.slab is not None}")
+        bmax = max(max(self.store.bmax_for_step(s)
+                       for s in range(self.store.sid_length)), 1)
+        return kernel_ops.vntk(log_probs, nodes, self.store.row_pointers,
+                               self.store.edges, bmax, self.store.vocab_size,
+                               impl=self.impl, constraint_ids=constraint_ids)
 
     def fused_step(self, logits, nodes, step, *, prefix_tokens=None,
                    constraint_ids=None):

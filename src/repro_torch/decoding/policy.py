@@ -1,12 +1,14 @@
 """DecodePolicy — a per-level constraint plan for beam decoding.
 
-Counterpart of ``repro.decoding.policy.DecodePolicy`` (without the
-level-free and shared-mask steps and ``shardings``, which are not ported
-yet): it binds which backend masks each decode level (STATIC over one matrix
-or a stacked multi-tenant store, or one of the paper's §5.2 baselines) and
-normalizes Phase 1 (log-softmax) unless the backend fuses it.  Per-row
-``constraint_ids`` reach only the backends that read a stacked store, and
-the emitted tokens (``prefix_tokens``) the baselines that mask by them.
+Counterpart of ``repro.decoding.policy.DecodePolicy`` (without
+``shardings``, which is not ported yet): it binds which backend masks each
+decode level (STATIC over one matrix or a stacked multi-tenant store, or one
+of the paper's §5.2 baselines) and normalizes Phase 1 (log-softmax) unless
+the backend fuses it.  Over an all-sparse index it also masks rows at mixed
+decode levels in one call, sharing mask rows across beams on one trie node
+(the continuous engine's step, DESIGN.md §10).  Per-row ``constraint_ids``
+reach only the backends that read a stacked store, and the emitted tokens
+(``prefix_tokens``) the baselines that mask by them.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from repro_torch.core.baselines import (
 )
 from repro_torch.core.compressed_slab import CompressedSlab
 from repro_torch.core.transition_matrix import TransitionMatrix
+from repro_torch.core.vntk import NEG_INF
 from repro_torch.decoding.backends import (
     BACKENDS,
     CpuTrieBackend,
@@ -169,6 +172,91 @@ class DecodePolicy:
         lp = logits if normalized else torch.log_softmax(logits.float(), dim=-1)
         return b.mask_step(lp, nodes, step, prefix_tokens=prefix_tokens,
                            constraint_ids=cids)
+
+    # -- level-free masking (continuous batching, DESIGN.md §10) -----------
+    @property
+    def supports_level_free(self) -> bool:
+        """True when one mask call serves rows at different decode levels: a
+        single-backend plan whose backend is all-sparse (``dense_d == 0``,
+        so node ids are unique across levels and ``(constraint_id, node)``
+        alone determines the admissible set)."""
+        if len(set(self.plan)) != 1:
+            return False
+        return bool(getattr(self.backends[self.plan[0]],
+                            "supports_level_free", False))
+
+    def _level_free(self, constraint_ids):
+        """The backend and the ids it takes; raises unless level-free."""
+        if not self.supports_level_free:
+            raise ValueError(
+                f"[{self.describe()}] cannot mask level-free; build the "
+                "policy over a dense_d=0 index "
+                "(TransitionMatrix.from_sids(..., dense_d=0))")
+        b = self.backends[self.plan[0]]
+        return b, self._ids_for(b, constraint_ids)
+
+    def level_free_step(self, logits, nodes, *, constraint_ids=None,
+                        normalized: bool = False):
+        """Phases 1-2 with per-row levels: ``(masked_log_probs, next_dense)``
+        for ``logits`` (N, V) and ``nodes`` (N,) at ANY mixture of levels.
+
+        Equal to :meth:`step` at whatever level each row's node sits on.
+        Always normalizes, then masks: the fused kernel is per-level and
+        is not consulted.
+        """
+        b, cids = self._level_free(constraint_ids)
+        lp = logits if normalized else torch.log_softmax(logits.float(), dim=-1)
+        return b.level_free_mask(lp, nodes, constraint_ids=cids)
+
+    def shared_mask_step(self, logits, nodes, *, constraint_ids=None,
+                         share_width: Optional[int] = None,
+                         normalized: bool = False):
+        """Trie-prefix-shared Phases 1-2: rows with equal ``(constraint_id,
+        node)`` (beams on the same trie node) compute ONE mask and
+        next-state row instead of one each.
+
+        Returns ``(masked_log_probs, next_dense, n_unique)``, ``n_unique`` a
+        0-d tensor on the rows' device (``N - n_unique`` mask rows saved).
+        The mask and next-state rows are functions of the key alone, so the
+        sharing is exact: the mask row is made once from zero log-probs
+        (its entries are then ``0.0`` on admissible tokens and ``NEG_INF``
+        elsewhere) and applied to each row by a select, which gives the
+        bits of masking every row on its own.
+
+        ``share_width`` caps the representative rows ``U``.  With ``U >=
+        N`` (or ``None``) the shared branch always runs and nothing waits
+        for the device.  With ``U < N`` a step whose rows hold more than
+        ``U`` keys masks every row on its own instead; that choice is the
+        reference's ``lax.cond``, taken here on the host, so it reads
+        ``n_unique`` back: **one device-to-host sync per call**, after
+        everything queued before it.  Both branches give the same bits.
+        """
+        b, cids = self._level_free(constraint_ids)
+        lp = logits if normalized else torch.log_softmax(logits.float(), dim=-1)
+        N, V = lp.shape
+        keys = nodes.long()
+        if cids is not None:  # int64: K * (n_states + 1) may pass 2^31
+            keys = cids.long() * (self.constraints.n_states + 1) + keys
+        order = torch.argsort(keys, stable=True)  # any representative works
+        sorted_keys = keys[order]
+        new_key = torch.ones(N, dtype=torch.bool, device=lp.device)
+        new_key[1:] = sorted_keys[1:] != sorted_keys[:-1]
+        uid_sorted = torch.cumsum(new_key, 0) - 1  # (N,) int64
+        n_unique = uid_sorted[-1] + 1
+        U = N if share_width is None else int(share_width)
+        if U < N and int(n_unique) > U:  # the host sync
+            masked, nxt = b.level_free_mask(lp, nodes, constraint_ids=cids)
+            return masked, nxt, n_unique
+        inv = torch.empty_like(uid_sorted).scatter_(0, order, uid_sorted)
+        # one source row per key (U - n_unique slots stay on row 0)
+        rep_src = torch.zeros(U, dtype=torch.int64, device=lp.device)
+        rep_src.scatter_(0, uid_sorted, order)
+        mask_rows, next_rows = b.level_free_mask(
+            torch.zeros((U, V), dtype=lp.dtype, device=lp.device),
+            nodes[rep_src],
+            constraint_ids=None if cids is None else cids[rep_src])
+        masked = torch.where(mask_rows[inv] == 0.0, lp, NEG_INF)
+        return masked, next_rows[inv], n_unique
 
     def plan_info(self, beams: int = 1) -> list:
         """Machine-readable per-level plan for telemetry (DESIGN.md §9): one

@@ -1,4 +1,4 @@
-"""Batch launcher of the port: STATIC-constrained generative retrieval.
+"""Launcher of the port: STATIC-constrained generative retrieval.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --config small \\
         --constraints 3000 --batch 2 --beam 4 --requests 2 --device cpu
@@ -6,11 +6,29 @@
 ``--config static_gr`` serves the paper's 3B configuration (SID vocab 2048,
 L=8, 256-token histories); ``small`` a 4-layer, 128-wide model over a
 256-token SID vocab with L=4 and 16-token histories (the reference
-launcher's defaults).  Weights are random, made from ``--seed``.  The run
-prints the policy plan, the median batch latency and whether every emitted
-beam is a member of the constraint set.  ``--unconstrained`` decodes with no
-constraint (the latency lower bound of Table 1): no index is built, and the
-share of beams that happen to be in the set is reported, not required.
+launcher's defaults).  Weights are random, made from ``--seed``.
+
+``--engine`` picks how requests are served:
+
+* ``batch`` (default): ``GenerativeRetriever.retrieve`` over fixed batches
+  of ``--batch`` requests, one warm-up and ``--requests`` timed batches;
+  the run prints the policy plan and the median batch latency.
+* ``continuous``: ``ContinuousServingEngine`` (DESIGN.md §10) over a
+  ``RequestQueue`` of ``--requests * --batch`` requests drawn from a pool
+  of a third as many prompts (so repeats share their prefill), with
+  ``--batch`` slots and ``--batch // 2`` fresh prefills per step.  Its
+  level-free mask needs the all-sparse index, so the index is built at
+  ``dense_d=0``.  The run prints the request latencies, slot reuse and
+  both share-hit counts.
+
+Either way the run checks that every emitted beam is a member of the
+constraint set, and exits 1 if one is not.  ``--unconstrained`` (batch
+only) decodes with no constraint (the latency lower bound of Table 1): no
+index is built, and the share of beams in the set is reported, not
+required.  ``--fault-schedule`` arms the deterministic fault injector
+(DESIGN.md §13; inline JSON or a file); a request the faults shed is
+reported, not checked.  ``--metrics-json`` appends a snapshot of the run's
+``MetricsRegistry`` to a JSON-lines file at the end.
 """
 from __future__ import annotations
 
@@ -28,6 +46,10 @@ from repro_torch.core.trie import sorted_unique_sids
 from repro_torch.core.vntk import NEG_INF
 from repro_torch.decoding import DecodePolicy
 from repro_torch.models import transformer
+from repro_torch.observability import MetricsRegistry
+from repro_torch.reliability import CircuitBreaker, FaultInjector, active_injector
+from repro_torch.serving import RequestQueue
+from repro_torch.serving.continuous import ContinuousServingEngine
 from repro_torch.serving.generative_retrieval import GenerativeRetriever
 
 logger = logging.getLogger("repro_torch.launch.serve")
@@ -80,6 +102,19 @@ def main(argv=None):
     ap.add_argument("--no-topk", action="store_true",
                     help="vocab-aligned constraint step instead of the "
                          "candidate-compressed one (DESIGN.md §8)")
+    ap.add_argument("--engine", choices=["batch", "continuous"],
+                    default="batch",
+                    help="batch: retrieve over fixed batches; continuous: "
+                         "the step-boundary ContinuousServingEngine over a "
+                         "request queue (builds the index at dense_d=0)")
+    ap.add_argument("--metrics-json", metavar="PATH", default=None,
+                    help="append a JSON-lines MetricsRegistry snapshot to "
+                         "PATH on exit (DESIGN.md §9)")
+    ap.add_argument("--fault-schedule", metavar="JSON", default=None,
+                    help="arm the deterministic fault injector (DESIGN.md "
+                         "§13): inline JSON or a path to a JSON file of the "
+                         "form {\"seed\": 0, \"faults\": [{\"point\": ..., "
+                         "\"mode\": ...}, ...]}")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch constraint step)")
@@ -89,6 +124,22 @@ def main(argv=None):
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
 
     device = resolve_device(args.device)
+    if args.engine == "continuous" and args.unconstrained:
+        ap.error("--unconstrained serves the batch engine only (the "
+                 "continuous engine masks level-free over an index)")
+    injector = None
+    if args.fault_schedule:
+        injector = FaultInjector.from_json(args.fault_schedule)
+        logger.info("fault injection armed (seed=%d)", injector.seed)
+    with active_injector(injector):  # uninstalled again on the way out
+        return serve(args, device, injector)
+
+
+def serve(args, device, injector) -> int:
+    """Build the index and the model, serve, check compliance; the exit
+    code."""
+    continuous = args.engine == "continuous"
+    metrics = MetricsRegistry()
     if args.config == "static_gr":
         cfg, vocab, L = static_gr.CONFIG, static_gr.SID_VOCAB, static_gr.SID_LENGTH
         hist_len, beam = static_gr.HISTORY_LEN, args.beam or static_gr.BEAM_SIZE
@@ -96,6 +147,8 @@ def main(argv=None):
     else:
         cfg, vocab, L, hist_len, beam, dense_d = (small_config(256), 256, 4, 16,
                                                   args.beam or 8, 2)
+    if continuous:  # level-free masking needs node ids unique across levels
+        dense_d = 0
     rng = np.random.default_rng(args.seed)
     sids = rng.integers(0, vocab, size=(args.constraints, L))
     if args.unconstrained:
@@ -111,21 +164,73 @@ def main(argv=None):
                     tm.n_states, time.time() - t0, policy.describe())
     params = transformer.init_params(cfg, seed=args.seed, device=device)
     r = GenerativeRetriever(params, cfg, policy, L, vocab, beam_size=beam)
-    hist = rng.integers(0, cfg.vocab_size, (args.batch, hist_len))
+    if continuous:
+        beams, scores = serve_continuous(args, r, hist_len, rng, metrics)
+    else:
+        beams, scores = serve_batches(args, r, hist_len, rng, metrics)
+    members, live = compliance(sorted_unique_sids(sids), beams, scores)
+    logger.info("compliance: %s (%d/%d live beams in the constraint set)",
+                members == live, members, live)
+    logger.info("top-1 SIDs: %s", beams[:, 0, :].tolist())
+    if injector is not None:
+        logger.info("injected faults fired: %d", injector.n_fires())
+    if args.metrics_json:
+        metrics.write_snapshot(args.metrics_json)
+        logger.info("metrics snapshot appended to %s", args.metrics_json)
+    return 0 if members == live or args.unconstrained else 1
+
+
+def serve_batches(args, r, hist_len, rng, metrics):
+    """One warm-up and ``--requests`` timed ``retrieve`` batches; returns
+    the last batch's (beams, scores)."""
+    hist = rng.integers(0, r.cfg.vocab_size, (args.batch, hist_len))
+    wall = metrics.histogram("step_wall_seconds",
+                             "wall time of one timed step")
     lat = []
     for i in range(args.requests + 1):
         t0 = time.perf_counter()
         beams, scores = r.retrieve(hist)  # returns host arrays: synchronized
         if i:
             lat.append(time.perf_counter() - t0)
-    members, live = compliance(sorted_unique_sids(sids), beams, scores)
-    logger.info("%.1f ms/request-batch of %d (beam %d) on %s; compliance: %s "
-                "(%d/%d live beams in the constraint set)",
-                float(np.median(lat)) * 1e3, args.batch, beam, device,
-                members == live, members, live)
-    logger.info("top-1 SIDs: %s", beams[:, 0, :].tolist())
-    return 0 if members == live or args.unconstrained else 1
+            wall.observe(lat[-1], step="retrieve_batch")
+    logger.info("%.1f ms/request-batch of %d (beam %d) on %s",
+                float(np.median(lat)) * 1e3, args.batch, r.M, r.device)
+    return beams, scores
 
+
+def serve_continuous(args, r, hist_len, rng, metrics):
+    """``--requests * --batch`` requests through the continuous engine;
+    returns the (beams, scores) of every completed request, stacked."""
+    engine = ContinuousServingEngine(
+        r, slots=args.batch, prompt_width=hist_len,
+        prefill_chunk=max(args.batch // 2, 1), metrics=metrics,
+        breaker=CircuitBreaker(name="serve", metrics=metrics))
+    queue = RequestQueue()
+    n_req = args.requests * args.batch
+    pool = rng.integers(0, r.cfg.vocab_size, (max(n_req // 3, 1), hist_len))
+    rids = [queue.submit(pool[i % len(pool)], r.L) for i in range(n_req)]
+    t0 = time.perf_counter()
+    results = engine.serve(queue)
+    wall = time.perf_counter() - t0
+    done = [i for i in rids if "sids" in results[i]]
+    if len(done) < n_req:
+        logger.info("degraded: %d/%d completed (%s)", len(done), n_req,
+                    sorted({results[i].get("reason", "?") for i in rids
+                            if "sids" not in results[i]}))
+    if not done:
+        raise SystemExit("no request completed")
+    lat = np.array([results[i]["latency_s"] for i in done])
+    hits = metrics.counter("serving_prefix_share_hits_total")
+    logger.info(
+        "continuous on %s: %d requests in %.1f ms (p50 %.1f ms, p99 %.1f "
+        "ms); slot reuse %d, share hits prompt=%d mask_row=%d",
+        r.device, len(done), wall * 1e3,
+        float(np.quantile(lat, 0.5)) * 1e3,
+        float(np.quantile(lat, 0.99)) * 1e3,
+        int(metrics.counter("serving_slot_reuse_total").total()),
+        int(hits.value(kind="prompt")), int(hits.value(kind="mask_row")))
+    return (np.stack([results[i]["sids"] for i in done]),
+            np.stack([results[i]["scores"] for i in done]))
 
 if __name__ == "__main__":
     raise SystemExit(main())

@@ -5,6 +5,9 @@ position of every slot (-1 = empty) and the next position to write.  The
 reference is functional; here the cache arrays are written in place (a
 beam cache of the 3B model is ~4 GB), while ``slot_pos`` is small and is
 replaced.
+
+The paged history pools of the continuous engine (DESIGN.md §10) live here
+too: :func:`init_page_pool`, :func:`scatter_pages` and :func:`gather_pages`.
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["KVCache", "advance_positions", "write_slot"]
+__all__ = ["KVCache", "advance_positions", "write_slot", "pages_for",
+           "init_page_pool", "scatter_pages", "gather_pages"]
 
 
 @dataclasses.dataclass
@@ -39,3 +43,65 @@ def advance_positions(slot_pos: torch.Tensor, pos: int, n_slots: int):
     new = slot_pos.clone()
     new[slot] = pos
     return new, slot
+
+
+# ---------------------------------------------------------------------------
+# Paged history pools (continuous batching, DESIGN.md §10)
+# ---------------------------------------------------------------------------
+def pages_for(seq_len: int, page_size: int) -> int:
+    """Pages needed to hold ``seq_len`` KV columns."""
+    return -(-int(seq_len) // int(page_size))
+
+
+def init_page_pool(n_layers: int, n_pages: int, page_size: int,
+                   n_kv_heads: int, head_dim: int, v_dim=None, *,
+                   dtype: torch.dtype, device) -> tuple:
+    """(k_pool, v_pool), each (n_layers, n_pages, page_size, KVH, Dh), zeros.
+
+    Page 0 is the allocator's NULL page (never handed out), so an all-zero
+    page table is always safe to gather through.
+    """
+    v_dim = v_dim or head_dim
+    return (
+        torch.zeros((n_layers, n_pages, page_size, n_kv_heads, head_dim),
+                    dtype=dtype, device=device),
+        torch.zeros((n_layers, n_pages, page_size, n_kv_heads, v_dim),
+                    dtype=dtype, device=device),
+    )
+
+
+def scatter_pages(pool: torch.Tensor, rows: torch.Tensor,
+                  page_ids: torch.Tensor) -> torch.Tensor:
+    """Commit prefilled KV rows into the pool at ``page_ids``, in place.
+
+    pool (n_layers, P, ps, KVH, Dh); rows (n_layers, B, S, KVH, Dh), ``S``
+    padded with zeros up to ``n_pages_per_row * ps``; page_ids (B,
+    n_pages_per_row) integer.  Rows sharing a page id (refcounted prompt
+    sharing) must carry identical content: which one lands is undefined.
+    """
+    n_layers, ps = pool.shape[0], pool.shape[2]
+    B, S = rows.shape[1], rows.shape[2]
+    n_per = page_ids.shape[1]
+    pad = n_per * ps - S
+    if pad:
+        rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
+    paged = rows.reshape(n_layers, B * n_per, ps, *rows.shape[3:])
+    pool[:, page_ids.reshape(-1).long()] = paged.to(pool.dtype)
+    return pool
+
+
+def gather_pages(pool_layer: torch.Tensor, page_table: torch.Tensor,
+                 hist_len: int) -> torch.Tensor:
+    """Read ``hist_len`` history columns per slot through the page table.
+
+    pool_layer (P, ps, KVH, Dh); page_table (slots, n_pages) ->
+    (slots, hist_len, KVH, Dh).  The trailing ``n_pages*ps - hist_len``
+    columns are sliced off, so page-granule padding never reaches
+    attention (an exact-width history keeps the softmax reduction the
+    contiguous cache's).
+    """
+    slots, n_pages = page_table.shape
+    ps = pool_layer.shape[1]
+    flat = pool_layer.index_select(0, page_table.reshape(-1).long())
+    return flat.reshape(slots, n_pages * ps, *pool_layer.shape[2:])[
+        :, :hist_len]

@@ -10,8 +10,9 @@ loop takes the place of ``lax.scan``)::
                  "ln_ffn": {"scale"},
                  "ffn": {"w1", "w3", "w2"}}, ...]}
 
-MLA, MoE, sliding-window attention, deferred cache writes and the paged
-decode step are not ported yet; configs asking for them raise.
+MLA, MoE, sliding-window attention and deferred cache writes are not
+ported yet; configs asking for them raise.  :func:`paged_decode_step` is the
+continuous engine's decode step over a paged history (DESIGN.md §10).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ from repro_torch.models import kvcache as kv_lib
 from repro_torch.models.attention import chunked_causal_attention, decode_attention
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu
 
-__all__ = ["init_params", "forward", "prefill", "decode_step", "torch_dtype"]
+__all__ = ["init_params", "forward", "prefill", "decode_step",
+           "paged_decode_step", "torch_dtype"]
 
 
 def torch_dtype(cfg: TransformerConfig) -> torch.dtype:
@@ -199,3 +201,96 @@ def decode_step(params, cache: kv_lib.KVCache, tokens: torch.Tensor,
     logits = (x @ _unemb(params, cfg)).float()
     return logits, kv_lib.KVCache(k=cache.k, v=cache.v, slot_pos=slot_pos,
                                   pos=pos + 1)
+
+
+def paged_decode_step(params, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                      page_table: torch.Tensor, suffix_k: torch.Tensor,
+                      suffix_v: torch.Tensor, tokens: torch.Tensor,
+                      pos: torch.Tensor, write_col: torch.Tensor,
+                      cfg: TransformerConfig, *, hist_len: int):
+    """One continuous-batching decode step through the paged KV cache.
+
+    ``k_pool``/``v_pool`` (n_layers, P, page_size, KVH, Dh) hold the shared
+    histories, read through ``page_table`` (slots, n_pages); the per-beam
+    decoded suffixes ``suffix_k``/``suffix_v`` (n_layers, slots, M, Ls, KVH,
+    Dh) are written in place.  ``tokens`` (slots, M) are each beam's last
+    emitted token, ``pos`` (slots,) each slot's attention position
+    (``S + level - 1``) and ``write_col`` (slots,) the suffix column that
+    receives this step's k/v.  Rows may sit at different decode levels:
+    attention masks each row to its own ``[0, pos]`` window.
+
+    Bit-identity contract (DESIGN.md §10): a row at level ``l >= 1`` with
+    ``pos = S + l - 1`` computes what the ``l``-th sequential
+    :func:`decode_step` computes for it, op for op: the gathered history
+    is sliced to exactly ``hist_len`` columns and followed by the
+    ``Ls = L + 1`` suffix columns, so the attention width ``S + L + 1`` is
+    the retriever's cache width and every reduction keeps its shape (the
+    matrix products' shapes too, when ``slots * M`` equals the batch
+    engine's row count).  Rows whose output is unused (level 0, dead
+    slots) must point ``write_col`` at the trash column ``Ls - 1``, which
+    no in-range ``pos`` attends to.
+
+    Returns ``(logits (slots*M, 1, vocab) f32, suffix_k, suffix_v)``.
+    """
+    if (cfg.attention != "gqa" or cfg.sliding_window is not None
+            or cfg.defer_cache_write or cfg.moe is not None
+            or cfg.decode_split_k):
+        raise NotImplementedError(
+            "paged_decode_step supports dense GQA models without sliding "
+            "window / MLA / MoE / deferred writes / split-K decode")
+    slots, M = tokens.shape
+    N, S, Ls = slots * M, int(hist_len), suffix_k.shape[3]
+    hd = cfg.resolved_head_dim()
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if page_table.shape[1] * k_pool.shape[2] < S:
+        raise ValueError(f"page table covers {page_table.shape[1]} pages of "
+                         f"{k_pool.shape[2]} columns < hist_len {S}")
+    dev = tokens.device
+    x = params["emb"][tokens.reshape(N, 1).long()]  # (N, 1, D)
+    pos_row = pos.long().repeat_interleave(M)  # (N,)
+    # synthetic slot positions: history columns 0..S-1, then the suffix at
+    # S..S+Ls-1; equal to the sequential cache's slot positions at every
+    # column <= pos, and the trash column S+Ls-1 > pos is always masked
+    slot_positions = torch.arange(S + Ls, dtype=torch.int32, device=dev)
+    slot_ix = torch.arange(slots, device=dev)[:, None]
+    beam_ix = torch.arange(M, device=dev)[None, :]
+    col_ix = write_col.long()[:, None].expand(slots, M)
+    for i, p in enumerate(params["layers"]):
+        h = rms_norm(p["ln_attn"], x, cfg.norm_eps)
+        a = p["attn"]
+        q = apply_rope(_proj(a["wq"], h, H, hd), pos_row[:, None],
+                       cfg.rope_theta)
+        k_new = apply_rope(_proj(a["wk"], h, KV, hd), pos_row[:, None],
+                           cfg.rope_theta)
+        v_new = _proj(a["wv"], h, KV, hd)
+        # this step's k/v into the per-beam suffix BEFORE attention
+        # (decode_step's order), at each slot's own column
+        sk, sv = suffix_k[i], suffix_v[i]
+        sk[slot_ix, beam_ix, col_ix] = k_new.reshape(slots, M, KV, hd).to(
+            sk.dtype)
+        sv[slot_ix, beam_ix, col_ix] = v_new.reshape(slots, M, KV, hd).to(
+            sv.dtype)
+        # [history | suffix] as one (N, S + Ls, KV, hd) operand, the shape
+        # of the retriever's cache: decode_attention reduces over it whole.
+        # Writing the history into it fans it out over the M beams, a real
+        # copy (the reference's jnp.repeat), and the only one.
+        kc = _history_and_suffix(k_pool[i], page_table, sk, S, M)
+        vc = _history_and_suffix(v_pool[i], page_table, sv, S, M)
+        out = decode_attention(q, kc, vc, slot_positions, pos_row)
+        x = x + out.reshape(N, 1, H * hd) @ a["wo"]["w"]
+        x = x + swiglu(p["ffn"], rms_norm(p["ln_ffn"], x, cfg.norm_eps))
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = (x @ _unemb(params, cfg)).float()
+    return logits, suffix_k, suffix_v
+
+
+def _history_and_suffix(pool_layer, page_table, suffix, S: int, M: int):
+    """(slots*M, S + Ls, KV, hd): each slot's paged history, repeated for
+    its M beams, then each beam's suffix (in the pool's dtype)."""
+    slots, Ls = suffix.shape[0], suffix.shape[2]
+    hist = kv_lib.gather_pages(pool_layer, page_table, S)
+    out = torch.empty((slots, M, S + Ls) + tuple(hist.shape[2:]),
+                      dtype=hist.dtype, device=hist.device)
+    out[:, :, :S] = hist[:, None]
+    out[:, :, S:] = suffix
+    return out.reshape((slots * M, S + Ls) + tuple(hist.shape[2:]))

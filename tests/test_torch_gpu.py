@@ -17,7 +17,13 @@ must equal their masks on the CPU, and an unconstrained beam search runs on
 the card with no VNTK launch.  A small batch engine serves on the card
 through a hot and a cold swap that an ``AsyncRefresher`` builds on its own
 stream, and a CUDA out-of-memory error in the refresher's build fails its
-future while the old store keeps serving.
+future while the old store keeps serving.  The continuous engine's pieces
+on the card: the level-free mask over a dense_d=0 trie and store (the mask
+kernel's block path, at a root row of 512 slots and more, and at a bmax
+above V under the store's headroom) against its plain version,
+``shared_mask_step`` against the per-level step, ``paged_decode_step``
+against ``decode_step``, and the engine against ``ServingEngine`` at equal
+shapes, bit for bit.
 """
 import threading
 
@@ -45,9 +51,10 @@ from repro_torch.decoding import DecodePolicy
 from repro_torch.kernels import embedding_bag as bag
 from repro_torch.kernels import ops
 from repro_torch.kernels import vntk as kv
-from repro_torch.models import transformer
+from repro_torch.models import kvcache, transformer
 from repro_torch.observability import compile_events
 from repro_torch.serving import GenerativeRetriever, RequestQueue, ServingEngine
+from repro_torch.serving.continuous import ContinuousServingEngine
 
 
 def _card():
@@ -444,3 +451,176 @@ def test_refresher_oom_on_the_card_fails_the_future(rng):
     assert reg.current() == (store, 1)
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == before
+
+
+# ---------------------------------------------------------------------------
+# continuous batching on the card
+# ---------------------------------------------------------------------------
+def _level_free_tables(rng, stacked):
+    """A dense_d=0 trie over V = 1024 (root row of ~1024 slots), or a
+    two-slot store over V = 600 at headroom 0.5 (root bmax ~900 > V);
+    with the state count every member has."""
+    if not stacked:
+        V = 1024
+        tm = TransitionMatrix.from_sids(rng.integers(0, V, (20_000, 3)), V,
+                                        dense_d=0, device="cuda")
+        return V, tm, DecodePolicy.static, tm.n_states
+    V = 600
+    reg = ConstraintRegistry(V, dense_d=0, headroom=0.5)
+    reg.register("fresh", freshness_window(45))
+    reg.register("cats", category_allowlist(0, 1, 2))
+    store = reg.build(_catalog(rng, 30_000, V, 3))
+    return V, store, DecodePolicy.stacked, int(store.member_n_states.min())
+
+
+def _mixed_rows(rng, n_states, nb, V):
+    """Rows on nodes of every level, the root and the sink among them."""
+    nodes = rng.integers(1, n_states, nb).astype(np.int32)
+    nodes[::3] = 1  # the root row
+    nodes[1::7] = 0  # the sink
+    x = torch.from_numpy(rng.normal(size=(nb, V)).astype(np.float32) * 4)
+    return x.cuda(), torch.from_numpy(nodes).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stacked", [False, True])
+def test_level_free_mask_block_path_equals_plain_on_the_card(rng, stacked):
+    _card()
+    V, tables, make, n_states = _level_free_tables(rng, stacked)
+    bmax = max(tables.level_bmax)
+    assert bmax >= 512 and kv.mask_path(bmax) == "block"
+    if stacked:
+        assert bmax > V  # the headroom envelope
+    policy, plain = make(tables), make(tables, impl="plain")
+    assert policy.supports_level_free and plain.supports_level_free
+    x, nodes = _mixed_rows(rng, n_states, 350, V)
+    cids = (torch.from_numpy(rng.integers(0, 2, 350).astype(np.int32)).cuda()
+            if stacked else None)
+    name = "vntk_stacked_mask" if stacked else "vntk_mask"
+    kv.reset_launches()
+    got = policy.level_free_step(x, nodes, constraint_ids=cids)
+    assert kv.LAUNCHES == {**{k: 0 for k in kv.LAUNCHES}, name: 1}
+    want = plain.level_free_step(x, nodes, constraint_ids=cids)
+    assert kv.LAUNCHES[name] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # zero log-probs, as the shared step gives them
+    zeros = torch.zeros_like(x)
+    got = policy.level_free_step(zeros, nodes, constraint_ids=cids,
+                                 normalized=True)
+    want = plain.level_free_step(zeros, nodes, constraint_ids=cids,
+                                 normalized=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stacked", [False, True])
+def test_shared_mask_step_on_the_card_equals_the_per_level_step(rng, stacked):
+    _card()
+    V, tables, make, _ = _level_free_tables(rng, stacked)
+    policy = make(tables)
+    B, M = 5, 70
+    N = B * M
+    cids = (torch.arange(B, dtype=torch.int32, device="cuda") % 2)[:, None] \
+        .expand(B, M) if stacked else None
+    cflat = None if cids is None else cids.reshape(N).contiguous()
+    nodes = torch.ones((B, M), dtype=torch.int32, device="cuda")
+    for step in range(3):
+        logits = torch.from_numpy(
+            rng.normal(size=(B, M, V)).astype(np.float32)).cuda()
+        want_lp, want_next = policy.step(logits, nodes, step,
+                                         constraint_ids=cids)
+        for share_width in (None, 2, N // 2, N):
+            lp, nxt, n_uni = policy.shared_mask_step(
+                logits.reshape(N, V), nodes.reshape(N), constraint_ids=cflat,
+                share_width=share_width)
+            assert torch.equal(lp, want_lp.reshape(N, V)), (step, share_width)
+            assert torch.equal(nxt, want_next.reshape(N, V))
+            assert 1 <= int(n_uni) <= N
+        tok = torch.from_numpy(rng.integers(0, 4, (B, M))).cuda()
+        order = torch.argsort(want_lp, dim=-1, descending=True, stable=True)
+        pick = order.gather(-1, tok[..., None])  # among the 4 best
+        nodes = want_next.gather(-1, pick)[..., 0].to(torch.int32)
+
+
+def _bf16_lm():
+    cfg = TransformerConfig(name="gr-tiny-bf16", n_layers=2, d_model=128,
+                            n_heads=8, n_kv_heads=2, d_ff=256, vocab_size=640,
+                            dtype="bfloat16", tie_embeddings=True)
+    return cfg, transformer.init_params(cfg, 3, device="cuda")
+
+
+@pytest.mark.gpu
+def test_paged_decode_step_on_the_card_equals_decode_step(rng):
+    _card()
+    cfg, params = _bf16_lm()
+    slots, M, S, L, ps = 5, 6, 24, 4, 16
+    N, Ls, hd = slots * M, L + 1, cfg.resolved_head_dim()
+    prompts = torch.from_numpy(rng.integers(0, 96, (slots, S))).cuda()
+    toks = torch.from_numpy(rng.integers(0, 96, (L, slots, M))).cuda()
+    with torch.inference_mode():
+        _, cache = transformer.prefill(params, prompts, cfg, max_len=S + Ls)
+        _, hist = transformer.prefill(params, prompts, cfg, max_len=S)
+        cache.k = cache.k.repeat_interleave(M, dim=1)
+        cache.v = cache.v.repeat_interleave(M, dim=1)
+        n_pages = -(-S // ps)
+        table = torch.arange(1, 1 + slots * n_pages,
+                             device="cuda").reshape(slots, n_pages)
+        pools = kvcache.init_page_pool(
+            cfg.n_layers, 1 + slots * n_pages, ps, cfg.n_kv_heads, hd,
+            dtype=torch.bfloat16, device="cuda")
+        for pool, rows in zip(pools, (hist.k, hist.v)):
+            kvcache.scatter_pages(pool, rows, table)
+        shape = (cfg.n_layers, slots, M, Ls, cfg.n_kv_heads, hd)
+        sk = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+        sv = torch.zeros_like(sk)
+        for lv in range(1, L):
+            want, cache = transformer.decode_step(
+                params, cache, toks[lv].reshape(N, 1), cfg)
+            got, sk, sv = transformer.paged_decode_step(
+                params, *pools, table, sk, sv, toks[lv],
+                torch.full((slots,), S + lv - 1, device="cuda"),
+                torch.full((slots,), lv - 1, device="cuda"), cfg, hist_len=S)
+            assert torch.equal(got, want), lv
+
+
+@pytest.mark.gpu
+def test_continuous_engine_on_the_card_equals_serving_engine(rng):
+    """Equal shapes (slots = prefill chunk = batch size): bit for bit, also
+    across a hot swap, with one mask launch per step."""
+    _card()
+    V, L, M, B = 600, 3, 8, 3
+    cfg, params = _bf16_lm()
+    reg = ConstraintRegistry(V, dense_d=0, headroom=0.5)
+    reg.register("fresh", freshness_window(45))
+    reg.register("cats", category_allowlist(0, 1, 2))
+    reg.build(_catalog(rng, 20_000, V, L))
+    retr = GenerativeRetriever(params, cfg, DecodePolicy.stacked(
+        reg.current()[0]), L, V, beam_size=M)
+    batch = ServingEngine(params, cfg, B, 16, retriever=retr, registry=reg)
+    cont = ContinuousServingEngine(retr, registry=reg, slots=B,
+                                   prompt_width=8, page_size=4,
+                                   prefill_chunk=B, share_width=B * M // 2)
+    for version in (1, 2):
+        prompts = rng.integers(0, 96, (7, 8))
+        prompts[4] = prompts[0]
+        out = []
+        for eng in (batch, cont):
+            q = RequestQueue()
+            for i, p in enumerate(prompts):
+                q.submit(p, L, i % 2)
+            kv.reset_launches()
+            steps = eng.metrics.counter("serving_decode_steps_total").total()
+            out.append(eng.serve(q))
+            steps = eng.metrics.counter(
+                "serving_decode_steps_total").total() - steps
+        assert kv.LAUNCHES["vntk_stacked_mask"] == steps
+        for rid, want in out[0].items():
+            got = out[1][rid]
+            assert got["store_version"] == version
+            assert np.array_equal(got["sids"], want["sids"])
+            assert np.array_equal(got["scores"], want["scores"])
+        reg.swap(_catalog(rng, 20_000, V, L))
+    assert cont.cold_swaps == 0
+    assert cont.metrics.counter("serving_recompiles_total").value(
+        expected="false") == 0
+    cont.alloc.check()
