@@ -92,6 +92,41 @@ Phases (any failure raises and the script exits non-zero):
               swap of a re-aged ``fresh_22`` under the default and the
               compressed policy must be reported hot and keep row 0
               compliant with the new set.
+4b. tiering — ``TieredTrie`` splits of phase 2's trie (DESIGN.md §11) at
+              ``hot_steps`` 2 (every sparse level on the host), 4, and the
+              ``hbm_budget`` choice for a budget halfway through level 6's
+              edges; static-gr-3b (phase 4's depth) at B = 2, M = 70, L = 8
+              through ``tiered_beam_search`` with the hot policy (topk on and
+              off; at hot_steps 4 also both compressed) and a
+              ``TriePrefetcher`` (pinned staging, a side stream).  Each must
+              give the SIDs and scores of the untiered ``beam_search`` under
+              the same policy on the same model logits bit for bit, be 100%
+              compliant, launch its kernel exactly ``hot_steps - dense_d``
+              times per retrieve and no other (counters zeroed just before
+              each retrieve and read just after; these launches join the
+              kernels' rows), and hold on the card no more than
+              ``tier_bytes()["hbm_bytes"]`` plus the hot slab plus 64 MB (its
+              distinct storages, and ``memory_allocated`` before and after);
+              one retrieve under ``FaultSpec("tiering.host_fetch",
+              mode="always", max_fires=2)`` must give the same bits and count
+              2 retries.  Printed: ``tier_bytes()``, pinned bytes, tiered and
+              untiered retrieve ms (median of 3 after a warm-up), and per
+              cold step the host gather's ms and the ms the step waited at
+              ``result()``; one ``{"tiering": ...}`` line.
+5b. shared  — ``transformer.gr_decode_step`` at phase 5's shapes (B = 5, M =
+              70, 256-token histories, S_sid = 8): both beam layouts (their
+              logits must be equal: one memory, the same ops) and the
+              M-tiled ``decode_step`` plus its cache reorder, each timed by
+              CUDA events (median of 5 after a warm-up).  Then an L-step
+              stacked search with ``beam_search``: the prefill's logits for
+              step 0, ``gr_decode_step`` at ``sid_step = step - 1`` after,
+              the carry gather over the suffix caches only.  It must be 100%
+              compliant per row; its retrieve ms beside
+              ``GenerativeRetriever.retrieve``'s, the share of SIDs equal to
+              the retriever's, the largest score difference (the two reduce
+              in different orders, so no bit-equality is asked) and the
+              caches' device bytes are printed; one ``{"shared_prefix":
+              ...}`` line.
 6. engine   — phase 5's retrievers released, ``ServingEngine`` over the
               phase-2 registry (B = 5, max_len 512, the stacked policy, M =
               70).  (a) 20 requests of 256-token histories in a skewed burst
@@ -119,6 +154,16 @@ Phases (any failure raises and the script exits non-zero):
               batch and 0 on the one after, compliance under the regrown
               store.  (d) ``ServingEngine.generate``, greedy, B = 2, 4
               tokens, equal to a manual ``prefill``/``decode_step`` loop.
+              (e) After (b): ``start_http_server`` over the engine's
+              ``MetricsRegistry`` with a ``HealthMonitor`` over its breaker
+              and the refresher's staleness: ``/metrics`` must hold the
+              serving counters, ``/healthz`` and ``/livez`` answer 200;
+              ``StepTimer`` over the stacked retrieve must count 0 steady
+              specializations (median, p99 and dispatch median printed);
+              ``maybe_trace`` around one retrieve must write a non-empty
+              trace (removed after); with the breaker tripped ``/healthz``
+              must answer 503 with ``["breaker_open"]`` while ``/livez``
+              stays 200.
               One ``{"engine": ...}`` JSON line carries the numbers; the
               engine's stacked topk launches join that kernel's row.
 7. continuous — ``ContinuousServingEngine`` (DESIGN.md §10) serving
@@ -1374,6 +1419,407 @@ def profile_retrieve(retrieve, retrieve_ms, kernel="vntk"):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: HBM/host tiering of the single trie
+# ---------------------------------------------------------------------------
+TIER_SLACK = 64 << 20  # device bytes a tiered policy may hold past its plan
+
+
+def model_search(params, cfg, hist, L, V, M, search):
+    """The retriever's prefill, M-tiled cache and cache reorder around
+    ``search(logits_fn, cache, first_logits, gather_cache)``; returns the
+    final beam state (``GenerativeRetriever._retrieve`` with the search
+    left open)."""
+    from repro_torch.models import transformer
+
+    B, S = hist.shape
+    with torch.inference_mode():
+        hist_t = torch.as_tensor(np.asarray(hist, np.int64), device="cuda")
+        pre, cache = transformer.prefill(params, hist_t, cfg,
+                                         max_len=S + L + 1)
+        cache = dataclasses.replace(cache,
+                                    k=cache.k.repeat_interleave(M, dim=1),
+                                    v=cache.v.repeat_interleave(M, dim=1))
+
+        def logits_fn(c, last, step):
+            logits, c = transformer.decode_step(
+                params, c, last.reshape(B * M, 1), cfg)
+            return logits[:, 0, :V].reshape(B, M, V), c
+
+        def gather_cache(c, beam_idx):
+            flat = (torch.arange(B, device="cuda")[:, None] * M
+                    + beam_idx).reshape(-1)
+            return dataclasses.replace(c, k=c.k.index_select(1, flat),
+                                       v=c.v.index_select(1, flat))
+
+        return search(logits_fn, cache, pre[:, 0, :V], gather_cache)
+
+
+def device_bytes(*tensors) -> int:
+    """Bytes of the distinct device storages behind ``tensors``."""
+    seen = {}
+    for t in tensors:
+        if t is not None and t.is_cuda:
+            s = t.untyped_storage()
+            seen[s.data_ptr()] = s.nbytes()
+    return sum(seen.values())
+
+
+def phase_tiering(args, single, idx):
+    """Tiered search over the 20M trie at full width (static-gr-3b, B = 2,
+    M = 70, L = 8): each split and policy bit-equal to the untiered search
+    with the CUDA kernels on the same model logits; returns the JSON record
+    and the hot steps' kernel launches."""
+    from repro_torch.configs import static_gr
+    from repro_torch.constraints import (
+        TieredTrie,
+        TriePrefetcher,
+        tiered_beam_search,
+    )
+    from repro_torch.core.beam_search import beam_search
+    from repro_torch.decoding import DecodePolicy
+    from repro_torch.kernels import vntk as kv
+    from repro_torch.observability import MetricsRegistry
+    from repro_torch.reliability import FaultInjector, FaultSpec, active_injector
+
+    rng = np.random.default_rng([args.seed, 9])  # later phases unmoved
+    params, cfg = single["params"], single["cfg"]
+    tm = idx["tm"]
+    L, V, M, B = (static_gr.SID_LENGTH, static_gr.SID_VOCAB,
+                  static_gr.BEAM_SIZE, 2)
+    d = tm.dense_d
+    hists = [rng.integers(0, cfg.vocab_size, (B, static_gr.HISTORY_LEN))
+             for _ in range(4)]
+    fixed = tm.nbytes() - tm.edges.numel() * tm.edges.element_size()
+    from repro_torch.core.trie import infer_level_blocks
+
+    offs = infer_level_blocks(
+        tm.row_pointers, tm.edges, n_states=tm.n_states, n_edges=tm.n_edges,
+        sid_length=L, dense_d=d).edge_offsets
+    # a budget between levels 5 and 6: the split picks hot_steps = 6
+    budget = fixed + int(offs[6]) * 8 + (int(offs[7]) - int(offs[6])) * 4
+    splits = [("hot_steps=2", dict(hot_steps=2)),
+              ("hot_steps=4", dict(hot_steps=4)),
+              ("hbm_budget", dict(hbm_budget=budget))]
+    counter = {(True, False): "vntk_topk", (False, False): "vntk_mask",
+               (True, True): "vntk_compressed_topk",
+               (False, True): "vntk_compressed_mask"}
+
+    def untiered(policy, hist):
+        def search(fn, cache, first, gather):
+            return beam_search(fn, cache, B, M, L, policy,
+                               carry_gather_fn=gather, first_logits=first)[0]
+        return model_search(params, cfg, hist, L, V, M, search)
+
+    def tiered_run(tiered, policy, pf, hist):
+        def search(fn, cache, first, gather):
+            return tiered_beam_search(
+                fn, cache, B, M, L, tiered, policy=policy, prefetcher=pf,
+                carry_gather_fn=gather, first_logits=first)[0]
+        return model_search(params, cfg, hist, L, V, M, search)
+
+    def timed(run):
+        lat = []
+        for hist in hists:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = run(hist)
+            state.scores.cpu()
+            lat.append(time.perf_counter() - t0)
+        return float(np.median(lat[1:])) * 1e3
+
+    plain = {}  # (topk, compressed): the untiered search's first batch
+    for key in counter:
+        state = untiered(DecodePolicy.static(tm, topk=key[0],
+                                             compressed=key[1]), hists[0])
+        plain[key] = (state.tokens.cpu().numpy(), state.scores.cpu().numpy())
+    untiered_ms = timed(lambda h: untiered(DecodePolicy.static(tm), h))
+    launches = dict.fromkeys(kv.LAUNCHES, 0)
+    out = {"untiered_ms": untiered_ms, "splits": {}}
+    for label, kw in splits:
+        gc.collect()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        tiered = TieredTrie.from_matrix(tm, **kw)
+        keys = ([(True, False), (False, False)]
+                + ([(True, True), (False, True)] if label == "hot_steps=4"
+                   else []))
+        policies = {k: tiered.hot_policy(topk=k[0], compressed=k[1])
+                    for k in keys}
+        gc.collect()
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - m0
+        tb = tiered.tier_bytes()
+        slab_b = device_bytes(tiered.hot_slab.tok_delta,
+                              tiered.hot_slab.level_base)
+        held = device_bytes(*(getattr(tiered.tm, f) for f in (
+            "row_pointers", "edges", "l0_mask_packed", "l0_states",
+            "l1_mask_packed", "l1_states")), tiered.hot_slab.tok_delta,
+            tiered.hot_slab.level_base)
+        limit = tb["hbm_bytes"] + slab_b + TIER_SLACK
+        if held > limit or grown > limit:
+            raise AssertionError(f"{label}: tiered policy holds {held} B "
+                                 f"(allocated {grown} B more), limit {limit}")
+        n_hot = tiered.hot_steps - d
+        metrics = MetricsRegistry()
+        with TriePrefetcher(tiered, metrics=metrics) as pf:
+            for key, pol in policies.items():
+                kv.reset_launches()  # this policy's run starts here
+                state = tiered_run(tiered, pol, pf, hists[0])
+                rose = dict(kv.LAUNCHES)  # ... and ends here
+                want = {k: (n_hot if k == counter[key] else 0) for k in rose}
+                if rose != want:
+                    raise AssertionError(f"{label} {key}: launches {rose}")
+                for k, n in rose.items():
+                    launches[k] += n
+                got = (state.tokens.cpu().numpy(), state.scores.cpu().numpy())
+                if not all(np.array_equal(a, b)
+                           for a, b in zip(got, plain[key])):
+                    raise AssertionError(f"{label} topk={key[0]} compressed="
+                                         f"{key[1]}: differs from untiered")
+                check_compliance(f"{label} {key}", idx["sorted_sids"],
+                                 *got)
+            pf.timings.clear()
+            ms = timed(lambda h: tiered_run(tiered, policies[(True, False)],
+                                            pf, h))
+            cold = list(pf.timings)[-(L - tiered.hot_steps) * 3:]
+            with active_injector(FaultInjector([FaultSpec(
+                    "tiering.host_fetch", mode="always", max_fires=2)])):
+                state = tiered_run(tiered, policies[(True, False)], pf,
+                                   hists[0])
+            retries = int(metrics.counter("tiering_fetch_retries_total")
+                          .total())
+            if retries != 2 or not np.array_equal(
+                    state.tokens.cpu().numpy(), plain[(True, False)][0]):
+                raise AssertionError(f"{label}: fault run {retries} retries")
+        per_step = {}
+        for t in cold:
+            per_step.setdefault(t["step"], []).append(t)
+        steps = {s: dict(gather_ms=float(np.median([t["gather_s"] for t in ts]))
+                         * 1e3,
+                         wait_ms=float(np.median([t["wait_s"] for t in ts]))
+                         * 1e3) for s, ts in sorted(per_step.items())}
+        pinned = max((t.get("pinned_bytes", 0) for t in cold), default=0)
+        log(f"  {label}: tier_bytes {tb}; hot slab {slab_b} B; policy holds "
+            f"{held} B on the card (allocated {grown} B more; limit {limit});"
+            f" {len(keys)} policies bit-equal to the untiered search, 100% "
+            f"compliant, {n_hot} hot-step launches each")
+        log(f"  {label}: tiered retrieve {ms:.2f} ms vs untiered "
+            f"{untiered_ms:.2f} ms (median of 3); pinned staging {pinned} B "
+            f"per cold step; per cold step gather/wait ms " + ", ".join(
+                f"{s}: {v['gather_ms']:.3f}/{v['wait_ms']:.3f}"
+                for s, v in steps.items())
+            + "; host_fetch fault: 2 retries, same bits")
+        out["splits"][label] = dict(
+            tier_bytes=tb, hot_slab_bytes=slab_b, held_bytes=held,
+            allocated_bytes=grown, tiered_ms=ms, pinned_bytes=pinned,
+            cold_steps=steps, policies=len(keys), retries=retries)
+        del tiered, policies, pf
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the prefix-shared GR decode step
+# ---------------------------------------------------------------------------
+def event_ms(fn, reps: int = 5) -> float:
+    """Median device ms of ``fn()`` between CUDA events, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+# bf16 rounds each activation to 8 bits of mantissa, and two bf16 steps that
+# reduce over different widths drift apart over 26 layers.  So the shared
+# step is held to float32 truth (the same weights and history upcast): its
+# error may be at most STEP_TOL times the tiled step's own error there, plus
+# one bf16 rounding (2^-8) of the logits' largest magnitude.
+STEP_TOL = 2.0
+
+
+def tree_float(tree):
+    if isinstance(tree, dict):
+        return {k: tree_float(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_float(v) for v in tree]
+    return tree.float()
+
+
+def phase_shared_prefix(args, params, cfg, idx):
+    """``gr_decode_step`` at phase 5's shapes (B = 5, M = 70, 256-token
+    histories, S_sid = 8): both layouts and the tiled ``decode_step`` with
+    its cache reorder timed, and an L-step constrained search over the
+    shared history against ``GenerativeRetriever.retrieve``."""
+    from repro_torch.configs import static_gr
+    from repro_torch.core.beam_search import beam_search
+    from repro_torch.decoding import DecodePolicy
+    from repro_torch.models import transformer
+    from repro_torch.serving import GenerativeRetriever
+
+    rng = np.random.default_rng([args.seed, 10])  # later phases unmoved
+    store = idx["store"]
+    L, V, M = static_gr.SID_LENGTH, static_gr.SID_VOCAB, static_gr.BEAM_SIZE
+    S, B = static_gr.HISTORY_LEN, store.num_sets
+    cids = np.arange(B, dtype=np.int32)
+    KV, hd, n = cfg.n_kv_heads, cfg.resolved_head_dim(), cfg.n_layers
+    hists = [rng.integers(0, cfg.vocab_size, (B, S)) for _ in range(4)]
+    policy = DecodePolicy.stacked(store)
+    retriever = GenerativeRetriever(params, cfg, policy, L, V, beam_size=M)
+    out = {}
+    with torch.inference_mode():
+        hist_t = torch.as_tensor(hists[0], device="cuda")
+        _, cache = transformer.prefill(params, hist_t, cfg,
+                                       max_len=S + L + 1)  # prefill once
+        # the shared history: one (n, B, S, KV, hd) copy per request
+        hist = dataclasses.replace(cache, k=cache.k[:, :, :S].clone(),
+                                   v=cache.v[:, :, :S].clone())
+        tiled = dataclasses.replace(cache,
+                                    k=cache.k.repeat_interleave(M, dim=1),
+                                    v=cache.v.repeat_interleave(M, dim=1))
+        del cache
+        toks = torch.from_numpy(rng.integers(0, V, (B * M, 1))).cuda()
+        sk = torch.zeros((n, B * M, L, KV, hd), dtype=hist.k.dtype,
+                         device="cuda")
+        sv = torch.zeros_like(sk)
+        step = 3
+        flat_fn = lambda: transformer.gr_decode_step(  # noqa: E731
+            params, hist.k, hist.v, sk, sv, toks, step, cfg)
+        bcfg = dataclasses.replace(cfg, gr_batched_beams=True)
+        bsk = sk.view(n, B, M, L, KV, hd)
+        bsv = sv.view(n, B, M, L, KV, hd)
+        batched_fn = lambda: transformer.gr_decode_step(  # noqa: E731
+            params, hist.k, hist.v, bsk, bsv, toks, step, bcfg)
+        # one step against the tiled decode_step on the same inputs: the
+        # first decode (sid_step 0, position S) over the same history
+        l0 = transformer.gr_decode_step(params, hist.k, hist.v, sk.clone(),
+                                        sv.clone(), toks, 0, cfg)[0].float()
+        t0_logits = transformer.decode_step(params, tiled, toks,
+                                            cfg)[0].float()
+        step_diff = float((l0 - t0_logits).abs().max())
+        step_scale = float(t0_logits.abs().max())
+        top1 = float((l0.argmax(-1) == t0_logits.argmax(-1)).float().mean())
+        # float32 truth for request 0's beams of the same step
+        ref = transformer.decode_step(
+            tree_float(params), dataclasses.replace(
+                tiled, k=tiled.k[:, :M].float(), v=tiled.v[:, :M].float()),
+            toks[:M], dataclasses.replace(cfg, dtype="float32"))[0]
+        err_gr = float((l0[:M] - ref).abs().max())
+        err_tiled = float((t0_logits[:M] - ref).abs().max())
+        del ref
+        torch.cuda.empty_cache()
+        if err_gr > STEP_TOL * err_tiled + 2.0 ** -8 * step_scale:
+            raise AssertionError(
+                f"gr_decode_step is {err_gr} from float32, the tiled "
+                f"decode_step {err_tiled} (tolerance {STEP_TOL}x)")
+        del l0, t0_logits
+        lf = flat_fn()[0].float()
+        lb = batched_fn()[0].float()
+        layout_diff = float((lf - lb).abs().max())
+        # the layouts are views of one memory, run through the same ops
+        if layout_diff != 0.0:
+            raise AssertionError(f"layouts differ by {layout_diff}")
+        flat_idx = (torch.arange(B, device="cuda")[:, None] * M
+                    + torch.from_numpy(rng.integers(0, M, (B, M))).cuda()
+                    ).reshape(-1)
+        ms = dict(
+            gr_flat=event_ms(flat_fn), gr_batched=event_ms(batched_fn),
+            tiled_decode=event_ms(lambda: transformer.decode_step(
+                params, tiled, toks, cfg)),
+            tiled_reorder=event_ms(lambda: (tiled.k.index_select(1, flat_idx),
+                                            tiled.v.index_select(1, flat_idx))))
+        del lf, lb
+        if args.profile:
+            log("  profile of gr_decode_step (flat):")
+            profile_retrieve(flat_fn, ms["gr_flat"], kernel="bmm")
+            log("  profile of the tiled decode_step:")
+            profile_retrieve(lambda: transformer.decode_step(
+                params, tiled, toks, cfg), ms["tiled_decode"],
+                kernel="copy")
+        nbytes = dict(history=device_bytes(hist.k) + device_bytes(hist.v),
+                      suffix=device_bytes(sk) + device_bytes(sv),
+                      tiled=device_bytes(tiled.k) + device_bytes(tiled.v))
+        del tiled, hist, sk, sv, bsk, bsv
+    torch.cuda.empty_cache()
+
+    def shared_retrieve(h):
+        with torch.inference_mode():
+            ht = torch.as_tensor(np.asarray(h, np.int64), device="cuda")
+            pre, hc = transformer.prefill(params, ht, cfg, max_len=S)
+            sk = torch.zeros((n, B * M, L, KV, hd), dtype=hc.k.dtype,
+                             device="cuda")
+            suf = (sk, torch.zeros_like(sk))
+
+            def logits_fn(c, last, s):
+                logits, k, v = transformer.gr_decode_step(
+                    params, hc.k, hc.v, c[0], c[1], last.reshape(B * M, 1),
+                    s - 1, cfg)
+                return logits[:, 0, :V].reshape(B, M, V), (k, v)
+
+            def gather(c, beam_idx):
+                flat = (torch.arange(B, device="cuda")[:, None] * M
+                        + beam_idx).reshape(-1)
+                return tuple(t.index_select(1, flat) for t in c)
+
+            state, _ = beam_search(logits_fn, suf, B, M, L, policy,
+                                   carry_gather_fn=gather,
+                                   first_logits=pre[:, 0, :V],
+                                   constraint_ids=torch.from_numpy(cids)
+                                   .cuda())
+            return state.tokens.cpu().numpy(), state.scores.cpu().numpy()
+
+    def timed(fn):
+        lat = []
+        for h in hists:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(h)
+            lat.append(time.perf_counter() - t0)
+        return float(np.median(lat[1:])) * 1e3
+
+    beams, scores = shared_retrieve(hists[0])
+    for i in range(B):
+        check_compliance(f"shared-prefix row {i}", idx["slot_sids"][i],
+                         beams[i:i + 1], scores[i:i + 1])
+    want_b, want_s = retriever.retrieve(hists[0], cids)
+    equal = float(np.mean(np.all(beams == want_b, axis=-1)))
+    score_diff = float(np.max(np.abs(scores - want_s)))
+    # random weights give near-flat log-probs: how close adjacent beams sit
+    gap = float(np.median(-np.diff(want_s, axis=1)))
+    ms["shared_retrieve"] = timed(shared_retrieve)
+    ms["retriever"] = timed(lambda h: retriever.retrieve(h, cids))
+    log(f"  gr_decode_step (B={B}, M={M}, S_h={S}, S_sid={L}, {n} layers): "
+        f"flat {ms['gr_flat']:.2f} ms, batched {ms['gr_batched']:.2f} ms "
+        f"(layouts' logits equal: largest difference {layout_diff}, "
+        f"tolerance 0: one memory, the same ops); tiled decode_step "
+        f"{ms['tiled_decode']:.2f} ms + cache reorder "
+        f"{ms['tiled_reorder']:.2f} ms (CUDA events, median of 5); one "
+        f"step (sid_step 0) against the tiled decode_step: largest logit "
+        f"difference {step_diff:.4g} of {step_scale:.4g}, top-1 tokens "
+        f"equal on {top1:.3f} of rows; against float32 (request 0): "
+        f"{err_gr:.4g} shared, {err_tiled:.4g} tiled (tolerance "
+        f"{STEP_TOL}x the tiled + 2^-8 of the largest logit)")
+    log(f"  shared-prefix search: {ms['shared_retrieve']:.2f} ms per "
+        f"retrieve vs GenerativeRetriever.retrieve {ms['retriever']:.2f} ms "
+        f"(median of 3); 100% compliant; SIDs equal to the retriever's at "
+        f"{equal:.3f} of (row, beam) positions, largest score difference "
+        f"{score_diff:.3g} (median gap between adjacent beams' scores "
+        f"{gap:.3g}); device bytes: history {nbytes['history']}, "
+        f"suffix {nbytes['suffix']}, tiled {nbytes['tiled']}")
+    out.update(ms=ms, layout_diff=layout_diff, step_diff=step_diff,
+               step_scale=step_scale, step_top1_equal=top1,
+               step_err_f32=dict(shared=err_gr, tiled=err_tiled),
+               sids_equal=equal, score_diff=score_diff, beam_gap=gap,
+               bytes=nbytes)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: batch serving with a live catalog refresh
 # ---------------------------------------------------------------------------
 ENGINE_BURST = (8, 4, 4, 2, 2)  # (a): requests per lane, submitted at once
@@ -1457,6 +1903,7 @@ def phase_engine(args, params, cfg, idx):
     from repro_torch.decoding import DecodePolicy
     from repro_torch.models import transformer
     from repro_torch.observability import compile_events
+    from repro_torch.reliability import CircuitBreaker
     from repro_torch.serving import GenerativeRetriever, ServingEngine
 
     rng = np.random.default_rng([args.seed, 7])  # later phases unmoved
@@ -1468,7 +1915,8 @@ def phase_engine(args, params, cfg, idx):
     retriever = GenerativeRetriever(params, cfg, DecodePolicy.stacked(store),
                                     L, V, beam_size=M)
     eng = ServingEngine(params, cfg, batch_size=B, max_len=2 * S,
-                        retriever=retriever, registry=reg)
+                        retriever=retriever, registry=reg,
+                        breaker=CircuitBreaker(name="serve"))
     run = EngineRun(eng, rng, n_sparse)
     counter = eng.metrics.counter
     out = {"registry_build_s": idx["registry_build_s"]}
@@ -1575,6 +2023,11 @@ def phase_engine(args, params, cfg, idx):
         during_batch_ms=[t * 1e3 for t in during],
         after_batch_ms=[t * 1e3 for t in after], peak_gb=peak / 1e9)
     launches = run.launches
+    hist = np.random.default_rng([args.seed, 11]).integers(
+        0, cfg.vocab_size, (B, S))
+    out["observability"] = phase_observability(
+        eng, retriever, ref.staleness_seconds, hist,
+        np.arange(B, dtype=np.int32))
     del eng, retriever, run, sets, delta
     del idx["registry"]  # and its version-2 store; idx["store"] is version 1
     gc.collect()
@@ -1646,6 +2099,77 @@ def phase_engine(args, params, cfg, idx):
     out["generate_equal"] = True
     out["launches"] = launches
     return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: health, HTTP exposition, step timer and trace capture
+# ---------------------------------------------------------------------------
+def phase_observability(eng, retriever, staleness_fn, hist, cids):
+    """``start_http_server`` over the engine's registry with a
+    ``HealthMonitor`` over its breaker and the registry's staleness;
+    ``StepTimer`` over the stacked retrieve; ``maybe_trace`` around one.
+    Trips the breaker last: the engine sheds from then on."""
+    import shutil
+    import urllib.error
+    import urllib.request
+
+    from repro_torch.observability import StepTimer, maybe_trace, start_http_server
+    from repro_torch.reliability import HealthMonitor
+
+    health = HealthMonitor(breaker=eng.breaker, staleness_fn=staleness_fn,
+                           staleness_bound_s=300.0, metrics=eng.metrics)
+    server, port = start_http_server(eng.metrics, port=0, health=health)
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=30) as resp:
+                return resp.status, resp.read().decode()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode()
+
+    try:
+        code, body = get("/metrics")
+        if code != 200 or not all(f"{name} " in body or f"{name}{{" in body
+                                  for name in ("serving_requests_total",
+                                               "serving_batches_total")):
+            raise AssertionError(f"/metrics answered {code} without the "
+                                 "engine's serving counters")
+        if get("/healthz")[0] != 200 or get("/livez")[0] != 200:
+            raise AssertionError("/healthz or /livez not 200 while serving")
+        stats = StepTimer("retrieve_stacked", eng.metrics, warmup=1,
+                          trials=5).measure(retriever.retrieve, hist, cids)
+        if stats.steady_compiles:
+            raise AssertionError(f"StepTimer: {stats.steady_compiles} steady "
+                                 "specializations")
+        trace_dir = os.path.join(HERE, "build", "trace")
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with maybe_trace(trace_dir):
+            retriever.retrieve(hist, cids)
+        sizes = [os.path.getsize(os.path.join(trace_dir, f))
+                 for f in os.listdir(trace_dir)]
+        shutil.rmtree(trace_dir)
+        if len(sizes) != 1 or not sizes[0]:
+            raise AssertionError(f"maybe_trace wrote {sizes}")
+        for _ in range(eng.breaker.failure_threshold):
+            eng.breaker.record_failure()
+        code, body = get("/healthz")
+        if code != 503 or json.loads(body)["reasons"] != ["breaker_open"]:
+            raise AssertionError(f"/healthz with the breaker open: {code} "
+                                 f"{body}")
+        if get("/livez")[0] != 200:
+            raise AssertionError("/livez flipped with the breaker open")
+    finally:
+        server.shutdown()
+        server.server_close()
+    log(f"  (e) http://127.0.0.1:{port}: /metrics holds the serving "
+        f"counters; /healthz, /livez 200; breaker tripped: /healthz 503 "
+        f"[\"breaker_open\"], /livez 200. StepTimer over the stacked "
+        f"retrieve: median {stats.median * 1e3:.2f} ms, p99 "
+        f"{stats.p99 * 1e3:.2f} ms, dispatch median "
+        f"{stats.dispatch_median * 1e3:.2f} ms, 0 steady specializations; "
+        f"maybe_trace wrote {sizes[0]} B")
+    return dict(step=stats.summary(), trace_bytes=sizes[0])
 
 
 # ---------------------------------------------------------------------------
@@ -2787,10 +3311,26 @@ def main() -> int:
         f"({time.time() - t0:.1f}s init)")
     log("phase 4: single-matrix path")
     launches, single = phase_single(args, rng, params, cfg, idx)
+    log("phase 4b: HBM/host tiering of the single trie")
+    t0 = time.time()
+    tiering, tier_launches = phase_tiering(args, single, idx)
+    for k, n in tier_launches.items():
+        launches[k] += n
+    tiering["seconds"] = time.time() - t0
+    print(json.dumps({"tiering": tiering}), flush=True)
+    log(f"  phase 4b took {tiering['seconds']:.1f}s")
     log("phase 5: stacked path")
     stacked = phase_stacked(args, rng, params, cfg, idx)
     launches.update({k: v for k, v in stacked.items() if "stacked" in k})
     gc.collect()  # phase 5's retrievers and slabs
+    torch.cuda.empty_cache()
+    log("phase 5b: the prefix-shared GR decode step")
+    t0 = time.time()
+    shared = phase_shared_prefix(args, params, cfg, idx)
+    shared["seconds"] = time.time() - t0
+    print(json.dumps({"shared_prefix": shared}), flush=True)
+    log(f"  phase 5b took {shared['seconds']:.1f}s")
+    gc.collect()
     torch.cuda.empty_cache()
     log("phase 6: batch serving with a live catalog refresh")
     t0 = time.time()

@@ -11,8 +11,10 @@ launcher's defaults).  Weights are random, made from ``--seed``.
 ``--engine`` picks how requests are served:
 
 * ``batch`` (default): ``GenerativeRetriever.retrieve`` over fixed batches
-  of ``--batch`` requests, one warm-up and ``--requests`` timed batches;
-  the run prints the policy plan and the median batch latency.
+  of ``--batch`` requests, timed by ``StepTimer`` (one warm-up and
+  ``--requests`` synchronized trials); the run prints the policy plan, the
+  median and p99 batch latency, the dispatch median and the steady
+  specializations.
 * ``continuous``: ``ContinuousServingEngine`` (DESIGN.md §10) over a
   ``RequestQueue`` of ``--requests * --batch`` requests drawn from a pool
   of a third as many prompts (so repeats share their prefill), with
@@ -28,7 +30,11 @@ index is built, and the share of beams in the set is reported, not
 required.  ``--fault-schedule`` arms the deterministic fault injector
 (DESIGN.md §13; inline JSON or a file); a request the faults shed is
 reported, not checked.  ``--metrics-json`` appends a snapshot of the run's
-``MetricsRegistry`` to a JSON-lines file at the end.
+``MetricsRegistry`` to a JSON-lines file at the end.  ``--metrics-port-file``
+and ``--health-port-file`` serve the registry at ``/metrics`` (and
+``/healthz``, ``/readyz``, ``/livez`` from a ``HealthMonitor`` over the
+serving circuit breaker) on an ephemeral localhost port for the run, and
+write the bound port to the file.
 """
 from __future__ import annotations
 
@@ -46,8 +52,13 @@ from repro_torch.core.trie import sorted_unique_sids
 from repro_torch.core.vntk import NEG_INF
 from repro_torch.decoding import DecodePolicy
 from repro_torch.models import transformer
-from repro_torch.observability import MetricsRegistry
-from repro_torch.reliability import CircuitBreaker, FaultInjector, active_injector
+from repro_torch.observability import MetricsRegistry, StepTimer, start_http_server
+from repro_torch.reliability import (
+    CircuitBreaker,
+    FaultInjector,
+    HealthMonitor,
+    active_injector,
+)
 from repro_torch.serving import RequestQueue
 from repro_torch.serving.continuous import ContinuousServingEngine
 from repro_torch.serving.generative_retrieval import GenerativeRetriever
@@ -110,6 +121,14 @@ def main(argv=None):
     ap.add_argument("--metrics-json", metavar="PATH", default=None,
                     help="append a JSON-lines MetricsRegistry snapshot to "
                          "PATH on exit (DESIGN.md §9)")
+    ap.add_argument("--metrics-port-file", metavar="PATH", default=None,
+                    help="serve Prometheus text at /metrics on an ephemeral "
+                         "localhost port and write the bound port to PATH")
+    ap.add_argument("--health-port-file", metavar="PATH", default=None,
+                    help="serve /healthz, /readyz and /livez (plus /metrics) "
+                         "on an ephemeral localhost port and write the bound "
+                         "port to PATH; readiness reflects the serving "
+                         "circuit breaker")
     ap.add_argument("--fault-schedule", metavar="JSON", default=None,
                     help="arm the deterministic fault injector (DESIGN.md "
                          "§13): inline JSON or a path to a JSON file of the "
@@ -131,15 +150,33 @@ def main(argv=None):
     if args.fault_schedule:
         injector = FaultInjector.from_json(args.fault_schedule)
         logger.info("fault injection armed (seed=%d)", injector.seed)
-    with active_injector(injector):  # uninstalled again on the way out
-        return serve(args, device, injector)
+    metrics = MetricsRegistry()
+    breaker = CircuitBreaker(name="serve", metrics=metrics)
+    server = None
+    if args.metrics_port_file or args.health_port_file:
+        health = (HealthMonitor(breaker=breaker, metrics=metrics)
+                  if args.health_port_file else None)
+        server, port = start_http_server(metrics, port=0, health=health)
+        for path in (args.metrics_port_file, args.health_port_file):
+            if path:
+                with open(path, "w") as f:
+                    f.write(str(port))
+        logger.info("metrics: http://127.0.0.1:%d/metrics", port)
+        if health is not None:
+            logger.info("health:  http://127.0.0.1:%d/healthz", port)
+    try:
+        with active_injector(injector):  # uninstalled again on the way out
+            return serve(args, device, injector, metrics, breaker)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
 
 
-def serve(args, device, injector) -> int:
+def serve(args, device, injector, metrics, breaker) -> int:
     """Build the index and the model, serve, check compliance; the exit
     code."""
     continuous = args.engine == "continuous"
-    metrics = MetricsRegistry()
     if args.config == "static_gr":
         cfg, vocab, L = static_gr.CONFIG, static_gr.SID_VOCAB, static_gr.SID_LENGTH
         hist_len, beam = static_gr.HISTORY_LEN, args.beam or static_gr.BEAM_SIZE
@@ -165,7 +202,8 @@ def serve(args, device, injector) -> int:
     params = transformer.init_params(cfg, seed=args.seed, device=device)
     r = GenerativeRetriever(params, cfg, policy, L, vocab, beam_size=beam)
     if continuous:
-        beams, scores = serve_continuous(args, r, hist_len, rng, metrics)
+        beams, scores = serve_continuous(args, r, hist_len, rng, metrics,
+                                         breaker)
     else:
         beams, scores = serve_batches(args, r, hist_len, rng, metrics)
     members, live = compliance(sorted_unique_sids(sids), beams, scores)
@@ -181,30 +219,29 @@ def serve(args, device, injector) -> int:
 
 
 def serve_batches(args, r, hist_len, rng, metrics):
-    """One warm-up and ``--requests`` timed ``retrieve`` batches; returns
-    the last batch's (beams, scores)."""
+    """``StepTimer`` over ``retrieve`` (one warm-up, ``--requests`` trials,
+    each in the ``step_wall_seconds{step="retrieve_batch"}`` histogram),
+    then one more batch; returns its (beams, scores)."""
     hist = rng.integers(0, r.cfg.vocab_size, (args.batch, hist_len))
-    wall = metrics.histogram("step_wall_seconds",
-                             "wall time of one timed step")
-    lat = []
-    for i in range(args.requests + 1):
-        t0 = time.perf_counter()
-        beams, scores = r.retrieve(hist)  # returns host arrays: synchronized
-        if i:
-            lat.append(time.perf_counter() - t0)
-            wall.observe(lat[-1], step="retrieve_batch")
-    logger.info("%.1f ms/request-batch of %d (beam %d) on %s",
-                float(np.median(lat)) * 1e3, args.batch, r.M, r.device)
+    timer = StepTimer("retrieve_batch", metrics, warmup=1,
+                      trials=args.requests, device=r.device)
+    stats = timer.measure(lambda: r.retrieve(hist))
+    beams, scores = r.retrieve(hist)
+    logger.info(
+        "%.1f ms/request-batch of %d (beam %d, p99 %.1f ms, dispatch %.2f "
+        "ms, steady specializations %d) on %s", stats.median * 1e3,
+        args.batch, r.M, stats.p99 * 1e3, stats.dispatch_median * 1e3,
+        stats.steady_compiles, r.device)
     return beams, scores
 
 
-def serve_continuous(args, r, hist_len, rng, metrics):
+def serve_continuous(args, r, hist_len, rng, metrics, breaker):
     """``--requests * --batch`` requests through the continuous engine;
     returns the (beams, scores) of every completed request, stacked."""
     engine = ContinuousServingEngine(
         r, slots=args.batch, prompt_width=hist_len,
         prefill_chunk=max(args.batch // 2, 1), metrics=metrics,
-        breaker=CircuitBreaker(name="serve", metrics=metrics))
+        breaker=breaker)
     queue = RequestQueue()
     n_req = args.requests * args.batch
     pool = rng.integers(0, r.cfg.vocab_size, (max(n_req // 3, 1), hist_len))

@@ -12,7 +12,9 @@ loop takes the place of ``lax.scan``)::
 
 MLA, MoE, sliding-window attention and deferred cache writes are not
 ported yet; configs asking for them raise.  :func:`paged_decode_step` is the
-continuous engine's decode step over a paged history (DESIGN.md §10).
+continuous engine's decode step over a paged history (DESIGN.md §10);
+:func:`gr_decode_step` the prefix-shared generative-retrieval step (one
+history cache per request, a short private suffix per beam).
 """
 from __future__ import annotations
 
@@ -21,11 +23,16 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.models import kvcache as kv_lib
-from repro_torch.models.attention import chunked_causal_attention, decode_attention
+from repro_torch.models.attention import (
+    NEG,
+    _product_f32,
+    chunked_causal_attention,
+    decode_attention,
+)
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu
 
 __all__ = ["init_params", "forward", "prefill", "decode_step",
-           "paged_decode_step", "torch_dtype"]
+           "gr_decode_step", "paged_decode_step", "torch_dtype"]
 
 
 def torch_dtype(cfg: TransformerConfig) -> torch.dtype:
@@ -201,6 +208,87 @@ def decode_step(params, cache: kv_lib.KVCache, tokens: torch.Tensor,
     logits = (x @ _unemb(params, cfg)).float()
     return logits, kv_lib.KVCache(k=cache.k, v=cache.v, slot_pos=slot_pos,
                                   pos=pos + 1)
+
+
+def gr_decode_step(params, hist_k: torch.Tensor, hist_v: torch.Tensor,
+                   beam_k: torch.Tensor, beam_v: torch.Tensor,
+                   tokens: torch.Tensor, sid_step: int,
+                   cfg: TransformerConfig):
+    """Prefix-shared generative-retrieval decode (``gr_decode_step``).
+
+    The history cache ``hist_k``/``hist_v`` (n_layers, B, S_h, KVH, Dh) is
+    computed once per request and shared by its M beams; only the SID
+    suffix ``beam_k``/``beam_v`` is private to a beam: (n_layers, B*M,
+    S_sid, KVH, Dh), or (n_layers, B, M, S_sid, KVH, Dh) with
+    ``cfg.gr_batched_beams`` (the same memory either way).  ``tokens``
+    (B*M, 1) are the beams' last tokens at position ``S_h + sid_step``;
+    their k/v land in suffix slot ``min(sid_step, S_sid - 1)``, in place.
+    Attention runs over [history | suffix] with one softmax.
+
+    As in the reference: both score products are float32 and scaled by
+    ``hd**-0.5``, suffix slots past ``sid_step`` are set to -1e30, the
+    probabilities are cast to the cache dtype before each value product
+    (float32 results), and ``o1 + o2`` is cast once.  GQA is a grouped
+    view, queries ``(.., KVH, G, Dh)`` against the unrepeated cache: the
+    history is laid out once per request and layer (B rows, not B*M) and
+    never repeated over the groups.
+
+    Returns ``(logits (B*M, 1, vocab) f32, beam_k, beam_v)``.
+    """
+    check_supported(cfg)
+    BM = tokens.shape[0]
+    B, S_h = hist_k.shape[1], hist_k.shape[2]
+    M = BM // B
+    hd = cfg.resolved_head_dim()
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    G = H // KV
+    batched = cfg.gr_batched_beams
+    S_sid = beam_k.shape[3] if batched else beam_k.shape[2]
+    sid_step = int(sid_step)
+    pos = S_h + sid_step
+    slot = min(sid_step, S_sid - 1)
+    scale = hd ** -0.5
+    x = params["emb"][tokens.long()]  # (BM, 1, D)
+    dev = x.device
+    pos_t = torch.full((1, 1), pos, device=dev)
+    sid_mask = torch.arange(S_sid, device=dev) <= sid_step
+    for i, p in enumerate(params["layers"]):
+        h = rms_norm(p["ln_attn"], x, cfg.norm_eps)
+        a = p["attn"]
+        q = apply_rope(_proj(a["wq"], h, H, hd), pos_t, cfg.rope_theta)
+        k_new = apply_rope(_proj(a["wk"], h, KV, hd), pos_t, cfg.rope_theta)
+        v_new = _proj(a["wv"], h, KV, hd)
+        # both layouts are one (B, M, S_sid, KV, hd) view of the same memory
+        bk = beam_k[i].view(B, M, S_sid, KV, hd)
+        bv = beam_v[i].view(B, M, S_sid, KV, hd)
+        bk[:, :, slot] = k_new.reshape(B, M, KV, hd).to(bk.dtype)
+        bv[:, :, slot] = v_new.reshape(B, M, KV, hd).to(bv.dtype)
+        hk, hv = hist_k[i], hist_v[i]  # (B, S_h, KV, hd)
+        qg = q.reshape(B, M, KV, G, hd)
+        # history: per (request, kv head) one (M*G, hd) x (hd, S_h) product
+        q1 = qg.permute(0, 2, 1, 3, 4).reshape(B * KV, M * G, hd)
+        s1 = _product_f32(q1, hk.permute(0, 2, 3, 1).reshape(
+            B * KV, hd, S_h)).view(B, KV, M, G, S_h) * scale
+        # suffix: per (beam, kv head) one (G, hd) x (hd, S_sid) product
+        s2 = _product_f32(qg.reshape(BM * KV, G, hd), bk.permute(
+            0, 1, 3, 4, 2).reshape(BM * KV, hd, S_sid)).view(
+            B, M, KV, G, S_sid) * scale
+        s2 = torch.where(sid_mask, s2, NEG)
+        s = torch.cat([s1.permute(0, 2, 1, 3, 4), s2], dim=-1)
+        prob = torch.softmax(s, dim=-1)  # (B, M, KV, G, S_h + S_sid)
+        p1 = prob[..., :S_h].to(hv.dtype).permute(0, 2, 1, 3, 4).reshape(
+            B * KV, M * G, S_h)
+        o1 = _product_f32(p1, hv.permute(0, 2, 1, 3).reshape(
+            B * KV, S_h, hd)).view(B, KV, M, G, hd).permute(0, 2, 1, 3, 4)
+        p2 = prob[..., S_h:].to(bv.dtype).reshape(BM * KV, G, S_sid)
+        o2 = _product_f32(p2, bv.permute(0, 1, 3, 2, 4).reshape(
+            BM * KV, S_sid, hd)).view(B, M, KV, G, hd)
+        out = (o1 + o2).reshape(BM, 1, H * hd).to(x.dtype)
+        x = x + out @ a["wo"]["w"]
+        x = x + swiglu(p["ffn"], rms_norm(p["ln_ffn"], x, cfg.norm_eps))
+    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = (x @ _unemb(params, cfg)).float()
+    return logits, beam_k, beam_v
 
 
 def paged_decode_step(params, k_pool: torch.Tensor, v_pool: torch.Tensor,

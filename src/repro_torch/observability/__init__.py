@@ -1,8 +1,9 @@
-"""Serving telemetry (DESIGN.md §9), the part the batch engine uses.
+"""Serving telemetry (DESIGN.md §9).
 
-Counterpart of ``repro.observability`` without ``start_http_server`` and
-``StepTimer`` (not ported yet).  Instrumentation stays on the host, around
-device calls: results are bit-identical with telemetry on or off.
+Counterpart of ``repro.observability``: metrics and their HTTP exposition,
+the step timer and specialization counter, profiler capture.
+Instrumentation stays on the host, around device calls: results are
+bit-identical with telemetry on or off.
 """
 from repro_torch.observability.metrics import (
     DEFAULT_LATENCY_BUCKETS_S,
@@ -11,9 +12,20 @@ from repro_torch.observability.metrics import (
     Gauge,
     Histogram,
     MetricsRegistry,
+    start_http_server,
 )
-from repro_torch.observability.profiling import annotate
-from repro_torch.observability.timing import RecompileDetector, compile_events
+from repro_torch.observability.profiling import (
+    annotate,
+    maybe_trace,
+    named_scope,
+    trace_capture,
+)
+from repro_torch.observability.timing import (
+    RecompileDetector,
+    StepStats,
+    StepTimer,
+    compile_events,
+)
 
 __all__ = [
     "Counter",
@@ -22,9 +34,15 @@ __all__ = [
     "MetricsRegistry",
     "DEFAULT_LATENCY_BUCKETS_S",
     "TOKEN_LATENCY_BUCKETS_S",
+    "start_http_server",
     "RecompileDetector",
+    "StepStats",
+    "StepTimer",
     "compile_events",
     "annotate",
+    "named_scope",
+    "trace_capture",
+    "maybe_trace",
     "record_policy",
 ]
 

@@ -1,7 +1,7 @@
 """Low-overhead serving metrics: counters, gauges, fixed-bucket histograms.
 
-A copy of ``repro.observability.metrics`` without ``start_http_server``
-(the HTTP exposition is not ported yet); it is host-only Python, so the two
+A copy of ``repro.observability.metrics``, HTTP exposition
+(:func:`start_http_server`) included; it is host-only Python, so the two
 render the same Prometheus text for the same operations.
 
 The paper's headline claim is an *overhead* claim (0.033 ms per constrained
@@ -27,7 +27,8 @@ Export sinks:
 
   * :meth:`MetricsRegistry.render_prometheus` — Prometheus text exposition
     (format 0.0.4: ``# TYPE`` headers, cumulative ``_bucket{le=...}``
-    rows, ``_sum``/``_count``).
+    rows, ``_sum``/``_count``), servable via :func:`start_http_server`
+    (``/metrics``, with ``/healthz``, ``/readyz`` and ``/livez``).
   * :meth:`MetricsRegistry.write_snapshot` — one JSON object per line
     (JSON-lines), appended so periodic snapshots form a time series.
 """
@@ -50,6 +51,7 @@ __all__ = [
     "MetricsRegistry",
     "DEFAULT_LATENCY_BUCKETS_S",
     "TOKEN_LATENCY_BUCKETS_S",
+    "start_http_server",
 ]
 
 # Geometric latency buckets: 25 us .. ~13 min, x2 per bucket.  Wide enough
@@ -321,3 +323,54 @@ class MetricsRegistry:
         with open(path, mode) as f:
             f.write(json.dumps(snap, sort_keys=True) + "\n")
         return snap
+
+
+def start_http_server(registry: MetricsRegistry, port: int = 0,
+                      host: str = "127.0.0.1", health=None):
+    """Serve ``registry.render_prometheus()`` at ``/metrics`` on a daemon
+    thread; returns ``(server, bound_port)``.  ``port=0`` binds an ephemeral
+    port — ``launch/serve.py --metrics-port-file`` writes it out so a
+    scraper (or a test) can discover the endpoint.  Shut down with
+    ``server.shutdown()``.
+
+    ``health`` (optional) is a callable ``() -> (ready, payload_dict)`` —
+    typically a :class:`repro_torch.reliability.HealthMonitor` — served at
+    ``/healthz`` (200 when ready, 503 otherwise, JSON body either way).
+    ``/livez`` always answers 200: the process is alive exactly when it
+    can answer at all (DESIGN.md §13).
+    """
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def _reply(self, status: int, body: bytes, ctype: str) -> None:
+            self.send_response(status)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 (http.server API)
+            path = self.path.split("?")[0]
+            if path == "/livez":
+                self._reply(200, b"ok\n", "text/plain; charset=utf-8")
+                return
+            if path in ("/healthz", "/readyz") and health is not None:
+                ready, payload = health()
+                body = (json.dumps(payload, sort_keys=True) + "\n").encode()
+                self._reply(200 if ready else 503, body, "application/json")
+                return
+            if path not in ("/", "/metrics"):
+                self.send_error(404)
+                return
+            body = registry.render_prometheus().encode()
+            self._reply(200, body,
+                        "text/plain; version=0.0.4; charset=utf-8")
+
+        def log_message(self, *a):  # quiet: scrapes are not serving events
+            pass
+
+    server = ThreadingHTTPServer((host, port), Handler)
+    t = threading.Thread(target=server.serve_forever, daemon=True,
+                         name="metrics-exposition")
+    t.start()
+    return server, int(server.server_address[1])

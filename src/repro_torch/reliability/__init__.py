@@ -1,7 +1,6 @@
 """Fault injection, retry, deadlines and admission control (DESIGN.md §13).
 
-Host-only copies of ``repro.reliability``'s modules that the batch engine
-and the refresher use (``HealthMonitor`` is not ported yet):
+Host-only copies of ``repro.reliability``'s modules:
 
 * :mod:`~repro_torch.reliability.faults` — seeded deterministic
   :class:`FaultInjector` over the named fault points; production code
@@ -13,6 +12,8 @@ and the refresher use (``HealthMonitor`` is not ported yet):
 * :mod:`~repro_torch.reliability.breaker` — :class:`CircuitBreaker` and
   :class:`AdmissionController`: the shed rung of the degradation ladder
   (retry → serve-stale → shed; never unconstrained decoding).
+* :mod:`~repro_torch.reliability.health` — :class:`HealthMonitor`, the
+  readiness answer of ``/healthz`` (breaker state and staleness).
 """
 from repro_torch.reliability.breaker import (
     CLOSED,
@@ -32,6 +33,7 @@ from repro_torch.reliability.faults import (
     install,
     uninstall,
 )
+from repro_torch.reliability.health import HealthMonitor
 from repro_torch.reliability.retry import RetryPolicy
 
 __all__ = [
@@ -50,4 +52,5 @@ __all__ = [
     "CLOSED",
     "HALF_OPEN",
     "OPEN",
+    "HealthMonitor",
 ]

@@ -23,7 +23,10 @@ kernel's block path, at a root row of 512 slots and more, and at a bmax
 above V under the store's headroom) against its plain version,
 ``shared_mask_step`` against the per-level step, ``paged_decode_step``
 against ``decode_step``, and the engine against ``ServingEngine`` at equal
-shapes, bit for bit.
+shapes, bit for bit.  Tiering: the tiered search with the kernels on a hot
+slab of exactly ``cold_base`` rows, bit-equal to the untiered search, and
+the prefetcher's pinned staging; ``gr_decode_step`` in bf16 against float32
+on the CPU; ``StepTimer`` on the card.
 """
 import threading
 
@@ -624,3 +627,302 @@ def test_continuous_engine_on_the_card_equals_serving_engine(rng):
     assert cont.metrics.counter("serving_recompiles_total").value(
         expected="false") == 0
     cont.alloc.check()
+
+
+# ---------------------------------------------------------------------------
+# tiering, the prefix-shared decode step and the step timer on the card
+# ---------------------------------------------------------------------------
+def _tiered_inputs(rng, V=64, L=4, n=3000):
+    from repro_torch.constraints import TieredTrie
+
+    sids = rng.integers(0, V, (n, L))
+    tm = TransitionMatrix.from_sids(sids, V, dense_d=0, device="cuda")
+    table = torch.from_numpy(
+        rng.normal(size=(L, V, V)).astype(np.float32)).cuda()
+    return tm, TieredTrie.from_matrix(tm, hot_steps=2), table
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topk,compressed", [(True, False), (False, False),
+                                             (True, True), (False, True)])
+def test_tiered_search_on_the_card_exact_hot_slab(rng, topk, compressed):
+    """Hot steps through the CUDA kernels on a hot slab of exactly
+    ``cold_base`` rows (its own allocation), bit-equal to the untiered
+    search; the run ``compute-sanitizer --tool memcheck`` is pointed at."""
+    from repro_torch.constraints import tiered_beam_search
+
+    _card()
+    tm, tiered, table = _tiered_inputs(rng)
+    L, B, M = tm.sid_length, 3, 5
+
+    def fn(carry, last, step):
+        return table[step][last.long()], carry
+
+    want, _ = beam_search(fn, None, B, M, L, DecodePolicy.static(
+        tm, topk=topk, compressed=compressed))
+    pol = tiered.hot_policy(topk=topk, compressed=compressed)
+    slab = pol.backends[-1]
+    hot = slab.slab.tok_delta if compressed else slab.tm.edges
+    assert hot.shape[0] == tiered.cold_base
+    assert hot.untyped_storage().nbytes() == hot.numel() * hot.element_size()
+    kv.reset_launches()
+    got, _ = tiered_beam_search(fn, None, B, M, L, tiered, policy=pol)
+    name = (f"vntk{'_compressed' if compressed else ''}_"
+            f"{'topk' if topk else 'mask'}")
+    assert kv.LAUNCHES[name] == tiered.hot_steps - tm.dense_d
+    assert sum(kv.LAUNCHES.values()) == kv.LAUNCHES[name]
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.scores, want.scores)
+    # edges past cold_base that a kernel must never use: poison them
+    if not compressed:
+        pad = 64
+        buf = torch.full((tiered.cold_base + pad, 2), 7, dtype=torch.int32,
+                         device="cuda")
+        buf[:tiered.cold_base] = slab.tm.edges
+        import dataclasses
+
+        poisoned = DecodePolicy.static(dataclasses.replace(
+            tiered.tm, edges=buf[:tiered.cold_base]), fused=False, topk=topk)
+        again, _ = tiered_beam_search(fn, None, B, M, L, tiered,
+                                      policy=poisoned)
+        assert torch.equal(again.tokens, want.tokens)
+        assert torch.equal(again.scores, want.scores)
+
+
+@pytest.mark.gpu
+def test_prefetcher_stages_through_pinned_memory(rng):
+    from repro_torch.constraints import TriePrefetcher
+
+    _card()
+    tm, tiered, _ = _tiered_inputs(rng)
+    lo, hi = (int(tiered.blocks.state_offsets[2]),
+              int(tiered.blocks.state_offsets[3]))
+    nodes = torch.from_numpy(
+        rng.integers(lo, hi, (3, 5)).astype(np.int32)).cuda()
+    want = tiered.gather_cold(nodes.cpu().numpy(), 2)
+    with TriePrefetcher(tiered) as pf:
+        g, lens = pf.prefetch(nodes, 2).result(timeout=30.0)
+        assert g.is_cuda and lens.is_cuda
+        assert torch.equal(g.cpu(), torch.from_numpy(want[0]))
+        assert torch.equal(lens.cpu(), torch.from_numpy(want[1]))
+        (record,) = pf.timings
+        assert record["pinned"] and record["pinned_bytes"] == (
+            want[0].nbytes + want[1].nbytes)
+
+
+@pytest.mark.gpu
+def test_gr_decode_step_bf16_on_the_card_against_float32_on_the_cpu(rng):
+    """bf16 weights and caches on the card against the same values in
+    float32 on the CPU: logits within 3e-2 of the logits' largest
+    magnitude (bf16 rounds every activation to 8 bits of mantissa)."""
+    import dataclasses
+
+    _card()
+    cfg, params = _bf16_lm()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _tree_to(params, "cpu", torch.float32)
+    B, M, S_h, S_sid, step = 2, 4, 16, 4, 2
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim()
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(torch.bfloat16)
+    hk, hv = f(cfg.n_layers, B, S_h, KV, hd), f(cfg.n_layers, B, S_h, KV, hd)
+    bk = f(cfg.n_layers, B * M, S_sid, KV, hd)
+    bv = f(cfg.n_layers, B * M, S_sid, KV, hd)
+    toks = torch.from_numpy(rng.integers(0, 96, (B * M, 1)).astype(np.int32))
+    with torch.inference_mode():
+        got, gk, _ = transformer.gr_decode_step(
+            params, hk.cuda(), hv.cuda(), bk.cuda(), bv.cuda(), toks.cuda(),
+            step, cfg)
+        want, wk, _ = transformer.gr_decode_step(
+            params32, hk.float(), hv.float(), bk.float(), bv.float(), toks,
+            step, cfg32)
+    err = float((got.cpu() - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"gr_decode_step bf16 vs float32: largest logit difference "
+          f"{err:.3g} of {scale:.3g}")
+    assert err <= 3e-2 * scale
+    assert torch.isfinite(got).all()
+
+
+def _tree_to(tree, device, dtype):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device, dtype) for v in tree]
+    return tree.to(device=device, dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_step_timer_synchronizes_the_card():
+    from repro_torch.observability import MetricsRegistry, StepTimer
+
+    _card()
+    reg = MetricsRegistry()
+    a = torch.randn(2048, 2048, device="cuda")
+    stats = StepTimer("mm", reg, warmup=1, trials=4).measure(
+        lambda: a @ a)
+    assert stats.trials == 4 and stats.steady_compiles == 0
+    assert (stats.dispatch_s <= stats.wall_s).all()
+    assert reg.histogram("step_wall_seconds").count(step="mm") == 4
+
+
+class _GuardedSlab:
+    """A device buffer that ends exactly at the end of a mapped granule,
+    with the next granule of its address range left unmapped, so a read
+    one byte past it faults (the CUDA driver's virtual memory API).  It
+    stands in for ``compute-sanitizer --tool memcheck``, which does not
+    run on every machine."""
+
+    def __init__(self, src: torch.Tensor):
+        import ctypes
+
+        cu = ctypes.CDLL("libcuda.so.1")
+        u64, size_t = ctypes.c_uint64, ctypes.c_size_t
+
+        class Location(ctypes.Structure):
+            _fields_ = [("type", ctypes.c_int), ("id", ctypes.c_int)]
+
+        class AllocFlags(ctypes.Structure):
+            _fields_ = [("compressionType", ctypes.c_ubyte),
+                        ("gpuDirectRDMACapable", ctypes.c_ubyte),
+                        ("usage", ctypes.c_ushort),
+                        ("reserved", ctypes.c_ubyte * 4)]
+
+        class Prop(ctypes.Structure):
+            _fields_ = [("type", ctypes.c_int),
+                        ("requestedHandleTypes", ctypes.c_int),
+                        ("location", Location),
+                        ("win32HandleMetaData", ctypes.c_void_p),
+                        ("allocFlags", AllocFlags)]
+
+        class Access(ctypes.Structure):
+            _fields_ = [("location", Location), ("flags", ctypes.c_int)]
+
+        def check(err, what):
+            if err:
+                raise RuntimeError(f"{what}: CUresult {err}")
+
+        dev = torch.cuda.current_device()
+        prop = Prop(type=1, requestedHandleTypes=0,  # pinned, no handle
+                    location=Location(type=1, id=dev))  # device memory
+        gran = size_t()
+        check(cu.cuMemGetAllocationGranularity(ctypes.byref(gran),
+                                               ctypes.byref(prop), 0),
+              "cuMemGetAllocationGranularity")
+        nbytes = src.numel() * src.element_size()
+        self.span = -(-nbytes // gran.value) * gran.value
+        self.handle, self.base = u64(), u64()
+        check(cu.cuMemCreate(ctypes.byref(self.handle), size_t(self.span),
+                             ctypes.byref(prop), u64(0)), "cuMemCreate")
+        check(cu.cuMemAddressReserve(ctypes.byref(self.base),
+                                     size_t(2 * self.span), size_t(0),
+                                     u64(0), u64(0)), "cuMemAddressReserve")
+        check(cu.cuMemMap(self.base, size_t(self.span), size_t(0),
+                          self.handle, u64(0)), "cuMemMap")
+        access = Access(location=Location(type=1, id=dev), flags=3)
+        check(cu.cuMemSetAccess(self.base, size_t(self.span),
+                                ctypes.byref(access), size_t(1)),
+              "cuMemSetAccess")
+        self.cu = cu
+        ptr = self.base.value + self.span - nbytes  # ends at the gap
+        typestr = {torch.int32: "<i4", torch.int16: "<i2"}[src.dtype]
+        self.__cuda_array_interface__ = dict(
+            shape=tuple(src.shape), typestr=typestr, data=(ptr, False),
+            version=3, strides=None)
+        self.tensor = torch.as_tensor(self, device="cuda")
+        self.tensor.copy_(src)
+        torch.cuda.synchronize()
+
+    def close(self):
+        import ctypes
+
+        torch.cuda.synchronize()
+        self.cu.cuMemUnmap(self.base, ctypes.c_size_t(self.span))
+        self.cu.cuMemRelease(self.handle)
+        self.cu.cuMemAddressFree(self.base, ctypes.c_size_t(2 * self.span))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topk,compressed", [(True, False), (False, False),
+                                             (True, True), (False, True)])
+def test_tiered_hot_slab_ends_at_a_guard_gap(rng, topk, compressed):
+    """The hot slab (or the slab's ``tok_delta`` prefix) placed so that its
+    last byte is the last byte of mapped memory: the kernels' hot steps,
+    which must read nothing past ``cold_base``, run without a fault and
+    give the untiered search's bits."""
+    import dataclasses
+
+    from repro_torch.constraints import tiered_beam_search
+
+    _card()
+    tm, tiered, table = _tiered_inputs(rng)
+    L, B, M = tm.sid_length, 3, 5
+
+    def fn(carry, last, step):
+        return table[step][last.long()], carry
+
+    want, _ = beam_search(fn, None, B, M, L, DecodePolicy.static(
+        tm, topk=topk, compressed=compressed))
+    pol = tiered.hot_policy(topk=topk, compressed=compressed)
+    sparse = pol.backends[-1]
+    src = sparse.slab.tok_delta if compressed else sparse.tm.edges
+    guard = _GuardedSlab(src)
+    try:
+        if compressed:
+            moved = dataclasses.replace(sparse, slab=dataclasses.replace(
+                sparse.slab, tok_delta=guard.tensor))
+        else:
+            moved = dataclasses.replace(sparse, tm=dataclasses.replace(
+                sparse.tm, edges=guard.tensor))
+        pol = dataclasses.replace(pol, backends=pol.backends[:-1] + (moved,))
+        kv.reset_launches()
+        got, _ = tiered_beam_search(fn, None, B, M, L, tiered, policy=pol)
+        torch.cuda.synchronize()  # a read past the slab faults here
+        assert sum(kv.LAUNCHES.values()) == tiered.hot_steps - tm.dense_d
+        assert torch.equal(got.tokens, want.tokens)
+        assert torch.equal(got.scores, want.scores)
+    finally:
+        guard.close()
+
+
+_PAST_THE_END = """
+import sys
+import torch
+from test_torch_gpu import _GuardedSlab
+
+src = torch.arange(1000, dtype=torch.int32, device="cuda").reshape(500, 2)
+guard = _GuardedSlab(src)
+assert torch.equal(guard.tensor, src)
+ptr = guard.__cuda_array_interface__["data"][0]
+
+
+class PastTheEnd:
+    __cuda_array_interface__ = dict(shape=(1001,), typestr="<i4",
+                                    data=(ptr, False), version=3,
+                                    strides=None)
+
+
+print(int(torch.as_tensor(PastTheEnd(), device="cuda").sum()))
+torch.cuda.synchronize()
+print("NO FAULT")
+"""
+
+
+@pytest.mark.gpu
+def test_guard_gap_faults_on_a_read_past_the_slab():
+    """The guard gap's positive control, in a child process (the fault is
+    sticky): a read one int32 past a guarded slab must fault."""
+    import os
+    import subprocess
+    import sys
+
+    _card()
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(os.path.dirname(here), "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here, src, os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", _PAST_THE_END], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert "NO FAULT" not in out.stdout
+    assert out.returncode != 0
+    assert "illegal memory access" in out.stderr, out.stderr[-2000:]
