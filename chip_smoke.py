@@ -280,7 +280,40 @@ Phases (any failure raises and the script exits non-zero):
               published size (10M x 64 items) at ``retrieval_cand`` (1M
               candidates, no bag launch): finite scores.  The phase's peak
               device memory is printed.
-11. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
+11. training — static-gr-3b at full width (26 layers, d_model 3072, GQA
+              24/8, bf16, 3.61B parameters; the serving state released)
+              through ``Trainer`` + ``adamw`` (lr 1e-3) on ``lm_loss``: 3
+              steps on one repeated batch of 8 histories of gr_train's 256
+              tokens (global_batch cut from 1024), 2 microbatches; the loss
+              finite and the last below the first, every float32 moment
+              nonzero, every weight
+              matrix changed; step ms by CUDA events and the peak device
+              memory (``--profile``: device time of one step).  Then FM at
+              its published size trained at ``train_batch`` (B = 65,536)
+              through the grouped bag kernel under its ``autograd.Function``
+              with deterministic algorithms: every gradient and the first
+              AdamW step's parameters bit-equal to ``impl="plain"``, a
+              checkpoint save -> ``Trainer.resume`` into a trainer built
+              on another seed's parameters, whose next step is bit-equal
+              to the uninterrupted run's (the bag counters zeroed
+              just before the kernel route's run and read just after); its
+              two grouped launches at B = 65,536 timed with their backward.
+              One ``{"training": ...}`` line.
+12. scenarios — ``cold_start_amazon`` (2,000 items, RQ-VAE 400 steps, GR
+              500 steps, beam 20, served through ``ServingEngine`` on the
+              stacked top-k kernel), ``multi_constraint`` and
+              ``refresh_churn`` (5,000 items, 3 hot swaps) at full size, and
+              ``cold_start_amazon`` at smoke size with the trie-aware loss,
+              each on the card through ``ScenarioRegistry.resolve(...)
+              .run()``: its own gates passed, 100% compliance, 0 unexpected
+              specializations, and the stacked top-k kernel the only VNTK
+              kernel launched, at least once (counters zeroed before each
+              run and read after); then each run served again with
+              ``serve.impl="plain"`` (index rebuilt, model kept): equal
+              beams, scores within rtol 1e-6, equal hit metrics.  One
+              ``{"scenarios": ...}`` line with hit@M and recall@1,
+              constrained against unconstrained.
+13. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
               with a row per kernel function (a VNTK row with the ``path``
               its main-path levels took, ``warp`` or ``block``, for topk
               and mask alike, and phase 7's two ``block`` rows; for the bag,
@@ -3261,6 +3294,377 @@ def phase_recsys(args, rng):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training at full width
+# ---------------------------------------------------------------------------
+# static-gr-3b on gr_train's histories of 256 tokens, global_batch cut from
+# 1024 to 8 (3.61B bf16 parameters, their gradients, a float32 accumulator
+# and float32 AdamW moments fill ~58 GB of the card before activations)
+GR_TRAIN_BATCH = 8
+GR_TRAIN_MICROBATCHES = 2
+GR_TRAIN_STEPS = 3
+GR_TRAIN_LR = 1e-3  # the reference launcher's AdamW rate
+FM_TRAIN_STEPS = 2  # the kernel route's steps; a resumed run retakes the last
+
+
+def leaf_items(tree):
+    from repro_torch.training.tree import flatten_with_path
+
+    return flatten_with_path(tree)
+
+
+def phase_train_gr(args, rng):
+    """static-gr-3b at full width through ``Trainer`` + ``adamw`` on
+    ``lm_loss``: 3 steps on one repeated batch (loss finite, the last
+    below the first), every parameter's float32 moment nonzero (each got a
+    gradient), every weight matrix changed; step ms by CUDA events, peak
+    GB, and under ``--profile`` the device time of one step (its cuBLAS
+    ``nvjet`` GEMMs' share)."""
+    from repro_torch.configs import static_gr
+    from repro_torch.models import transformer
+    from repro_torch.training import Trainer, TrainerConfig, adamw
+
+    cfg = static_gr.CONFIG
+    shape = next(s for s in static_gr.SHAPES if s.kind == "train")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    params = transformer.init_params(cfg, seed=args.seed, device="cuda")
+    before = [(k, v.to("cpu", copy=True)) for k, v in leaf_items(params)]
+    tokens = rng.integers(0, cfg.vocab_size, (GR_TRAIN_BATCH,
+                                              shape.history_len))
+    batch = {"tokens": tokens.astype(np.int32)}
+    trainer = Trainer(
+        lambda p, b: transformer.lm_loss(p, b["tokens"], cfg),
+        adamw(lr=GR_TRAIN_LR), params,
+        TrainerConfig(n_steps=GR_TRAIN_STEPS,
+                      microbatches=GR_TRAIN_MICROBATCHES))
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}: {cfg.param_count() / 1e9:.2f}B params in "
+        f"{cfg.dtype}, AdamW state allocated ({time.time() - t0:.1f}s); "
+        f"batch {GR_TRAIN_BATCH} x {shape.history_len} tokens (gr_train's "
+        f"global_batch {shape.global_batch} cut), {GR_TRAIN_MICROBATCHES} "
+        "microbatches")
+    losses, step_ms = [], []
+    for _ in range(GR_TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_one(batch))
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name} training: losses {losses} not "
+                             "finite or not falling")
+    moments = dict(leaf_items(trainer.opt_state["m"]))
+    no_grad = [k for k, m in moments.items() if not bool((m != 0).any())]
+    if no_grad:
+        raise AssertionError(f"{cfg.name}: no gradient reached {no_grad}")
+    after = dict(leaf_items(trainer.params))
+    unchanged = [k for k, v in before if torch.equal(v, after[k].cpu())]
+    matrices = [k for k in unchanged if after[k].dim() >= 2]
+    if matrices:
+        raise AssertionError(f"{cfg.name}: unchanged weights {matrices}")
+    log(f"  losses {[round(x, 4) for x in losses]} (finite, the last below "
+        f"the first); step "
+        f"ms {[round(x, 1) for x in step_ms]}; peak {peak / 1e9:.1f} GB; "
+        f"every moment nonzero, every matrix changed; {len(unchanged)} of "
+        f"{len(before)} tensors unchanged, all 1-D rms-norm scales (bf16 "
+        f"1.0: a step of lr {GR_TRAIN_LR} is under half an ulp there, and "
+        "the reference's recipe keeps no float32 master weights)")
+    out = dict(model=cfg.name, params_b=cfg.param_count() / 1e9,
+               batch=GR_TRAIN_BATCH, seq=shape.history_len,
+               microbatches=GR_TRAIN_MICROBATCHES, lr=GR_TRAIN_LR,
+               losses=losses, step_ms=step_ms, peak_gb=peak / 1e9,
+               unchanged_tensors=len(unchanged), tensors=len(before))
+    if args.profile:
+        log("  profile of one training step:")
+        profile_retrieve(lambda: trainer.train_one(batch),
+                         float(np.median(step_ms)), kernel="nvjet")
+    del trainer, params, before, after, moments
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fm_batch(rng, cfg, B):
+    """(B, F, 1) int32 ids uniform over each table and (B,) 0/1 labels."""
+    batch = sparse_batch(rng, cfg, B)
+    batch["label"] = torch.from_numpy(
+        rng.integers(0, 2, B).astype(np.float32)).cuda()
+    return batch
+
+
+def clone_tree(tree):
+    from repro_torch.training.tree import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def tree_equal(a, b) -> tuple:
+    """``(equal, max abs err)`` over matching leaves."""
+    err, equal = 0.0, True
+    for (k, x), (_, y) in zip(leaf_items(a), leaf_items(b)):
+        equal &= torch.equal(x, y)
+        err = max(err, float((x.float() - y.float()).abs().max()))
+    return equal, err
+
+
+def phase_train_fm(args, rng, seed):
+    """FM at its published size (39 tables, 1.145 GB) trained at
+    ``train_batch`` (B = 65,536) through the grouped bag kernel under
+    autograd, with ``torch.use_deterministic_algorithms(True)`` so the
+    float32 scatter-adds are reproducible: the tables' gradients and the
+    first AdamW step's parameters bit-equal to the same step through
+    ``impl="plain"``, then a checkpoint save -> ``Trainer.resume`` round
+    trip, into a trainer built on parameters of another seed, whose next
+    step is bit-equal to the uninterrupted run's.  Returns
+    (summary, bag report rows, bag launches of the kernel route's run)."""
+    import shutil
+
+    from repro_torch.configs import RECSYS_SHAPES, fm
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.models import recsys
+    from repro_torch.training import Trainer, TrainerConfig, adamw
+
+    cfg = fm.CONFIG
+    B = next(s for s in RECSYS_SHAPES if s.name == "train_batch").batch
+    params = init_recsys(cfg, seed)
+    b1, b2 = fm_batch(rng, cfg, B), fm_batch(rng, cfg, B)
+    loss = {impl: (lambda p, b, impl=impl: recsys.recsys_loss(p, b, cfg,
+                                                              impl=impl))
+            for impl in (None, "plain")}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        # the gradients of every parameter, kernel route vs plain route
+        grads = {}
+        for impl in (None, "plain"):
+            leaves = [t.requires_grad_(True) for _, t in leaf_items(params)]
+            grads[impl] = torch.autograd.grad(loss[impl](params, b1), leaves)
+            for t in leaves:
+                t.requires_grad_(False)
+        grad_err = max(float((g - h).abs().max())
+                       for g, h in zip(grads[None], grads["plain"]))
+        if not all(torch.equal(g, h)
+                   for g, h in zip(grads[None], grads["plain"])):
+            raise AssertionError(f"fm gradients differ from impl='plain' "
+                                 f"(max abs err {grad_err:g})")
+        del grads
+        t_plain = Trainer(loss["plain"], adamw(lr=1e-3), clone_tree(params),
+                          TrainerConfig(n_steps=1))
+        t_plain.train_one(b1)
+        ckpt_dir = os.path.join(HERE, "build", "ckpt_fm")
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        tcfg = TrainerConfig(n_steps=FM_TRAIN_STEPS, ckpt_dir=ckpt_dir,
+                             ckpt_async=False, ckpt_keep=1)
+        eb.reset_launches()  # the kernel route's training run starts here
+        t0 = time.time()
+        trainer = Trainer(loss[None], adamw(lr=1e-3), params, tcfg)
+        l1 = trainer.train_one(b1)
+        step_equal, step_err = tree_equal(trainer.params, t_plain.params)
+        if not step_equal:
+            raise AssertionError(f"fm first step differs from impl='plain' "
+                                 f"(max abs err {step_err:g})")
+        del t_plain
+        t1 = time.time()
+        trainer.maybe_checkpoint(force=True)
+        t_save = time.time() - t1
+        # a trainer of other parameters: restore must supply every value
+        resumed = Trainer(loss[None], adamw(lr=1e-3),
+                          init_recsys(cfg, seed + 1), tcfg)
+        if tree_equal(resumed.params, trainer.params)[0]:
+            raise AssertionError("fm: the resume check's template equals "
+                                 "the step-1 parameters")
+        t1 = time.time()
+        if not resumed.resume() or resumed.step != 1:
+            raise AssertionError("fm: resume found no step-1 checkpoint")
+        t_restore = time.time() - t1
+        l2 = trainer.train_one(b2)
+        l2r = resumed.train_one(b2)
+        cont_equal, cont_err = tree_equal(trainer.params, resumed.params)
+        state_equal, _ = tree_equal(trainer.opt_state, resumed.opt_state)
+        launches = dict(eb.SHAPES)  # ... and ends here
+        if not (cont_equal and state_equal and l2 == l2r):
+            raise AssertionError(f"fm: the resumed step differs (max abs err "
+                                 f"{cont_err:g})")
+        train_s = time.time() - t0
+    finally:
+        torch.use_deterministic_algorithms(was)
+        shutil.rmtree(os.path.join(HERE, "build", "ckpt_fm"),
+                      ignore_errors=True)
+    if not all(np.isfinite([l1, l2])):
+        raise AssertionError(f"fm losses {l1}, {l2} not finite")
+    log(f"  fm at B={B}: gradients of all {len(leaf_items(params))} "
+        f"parameters bit-equal to impl='plain' (deterministic scatters); "
+        f"first AdamW step bit-equal; losses {l1:.4f}, {l2:.4f}; checkpoint "
+        f"save {t_save:.1f}s, restore {t_restore:.1f}s, the resumed step "
+        f"bit-equal (params, moments, loss); bag launches {launches} "
+        f"({train_s:.1f}s)")
+    rows = time_fm_train_groups(params, rng, B)
+    out = dict(model=cfg.name, batch=B, losses=[l1, l2], grad_max_abs_err=
+               grad_err, save_s=t_save, restore_s=t_restore)
+    del trainer, resumed, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows, launches
+
+
+def time_fm_train_groups(params, rng, B):
+    """FM's two grouped launches at ``train_batch``: the forward against
+    its plain version and timed beside it and the per-table
+    ``F.embedding_bag`` calls; its backward (the ``autograd.Function``'s
+    scatter-add into the 39 tables, default, non-deterministic algorithms)
+    timed beside."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import fm
+    from repro_torch.kernels import embedding_bag as eb
+
+    cfg = fm.CONFIG
+    x = sparse_batch(rng, cfg, B)["sparse"]
+    rows_out = []
+    for kind in ("table", "wide"):
+        tables = [params[f"{kind}_{i}"] for i in range(cfg.n_sparse)]
+        Fn, D = len(tables), tables[0].shape[1]
+        label = f"fm {kind}_i F={Fn} D={D} B={B} (train_batch)"
+        err = compare_grouped(label, tables, x)
+        ms = device_ms(lambda: eb.embedding_bag_grouped_cuda(tables, x),
+                       iters=20)
+        plain_ms = device_ms(lambda: eb.embedding_bag_grouped_plain(
+            tables, x), iters=3)
+        cols = [x[:, f].contiguous() for f in range(Fn)]
+        library_ms = device_ms(lambda: [F.embedding_bag(c, t, mode="sum")
+                                        for c, t in zip(cols, tables)],
+                               iters=3)
+        g = torch.randn(B, Fn, D, device="cuda")
+        shapes = [(tuple(t.shape), t.dtype) for t in tables]
+        backward_ms = device_ms(lambda: [
+            eb._row_grad(s, dt, x[:, f], g[:, f], "sum")
+            for f, (s, dt) in enumerate(shapes)], iters=3)
+        bound = sum(bag_bytes(t, x[:, f]) for f, t in
+                    enumerate(tables)) / HBM_BYTES_PER_S * 1e3
+        path = eb.load_path(tables)
+        log(f"  grouped {label} ({path}): bit-equal to plain; "
+            f"{ms * 1e3:.2f} us (plain {plain_ms * 1e3:.2f} us, {Fn} "
+            f"F.embedding_bag in a CUDA graph {library_ms * 1e3:.2f} us, "
+            f"bound {bound * 1e3:.3f} us); backward {backward_ms * 1e3:.2f} "
+            "us (index_add_ into 39 dense float32 gradients)")
+        row = bag_row(f"embedding_bag_grouped_fm_{kind}_b{B}_f{Fn}_d{D}",
+                      (B, Fn, 1, D), path, err, ms, plain_ms, library_ms,
+                      bound, f"{Fn} x F.embedding_bag in one CUDA graph")
+        row["backward_ms"] = backward_ms
+        rows_out.append(row)
+        del g, cols
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the scenarios at full size
+# ---------------------------------------------------------------------------
+SCENARIOS = ("cold_start_amazon", "multi_constraint", "refresh_churn")
+# what the plain twin of a scenario run recomputes: the index (rebuilt from
+# the same catalog, as refresh_churn's swaps changed the registry), the serve
+# and the eval stages; the data, the tokenizer and the trained model are kept
+TWIN_DROPS = ("registry", "store", "slots", "predicates", "serve_results",
+              "serve_meta", "result", "eval_targets", "request_cids",
+              "final_catalog")
+HIT_KEYS = ("hit@M_static", "hit@M_unconstrained", "recall@1_static",
+            "recall@1_unconstrained", "recall@1_constrained_random",
+            "compliance", "alive_beams")
+
+
+def plain_twin(reg, name, smoke, overrides, args, ctx, label):
+    """Serve ``ctx``'s scenario run again with ``serve.impl="plain"`` (no
+    kernel launched) and hold the kernel route's served beams against it:
+    equal SIDs, scores within rtol 1e-6 (the stacked top-k rows'
+    tolerance), equal hit metrics.  Returns (max abs score err, bit-equal)."""
+    from repro_torch.kernels import vntk as kv
+
+    run = reg.resolve(name, smoke=smoke, seed=args.seed,
+                      overrides={**overrides, "serve.impl": "plain"})
+    kv.reset_launches()
+    twin = run.run(ctx={k: v for k, v in ctx.items() if k not in TWIN_DROPS})
+    if any(kv.LAUNCHES.values()):
+        raise AssertionError(f"{label}: the plain twin launched "
+                             f"{dict(kv.LAUNCHES)}")
+    got, want = ctx["serve_results"], twin["serve_results"]
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: served {set(got)} vs plain "
+                             f"{set(want)}")
+    err, bit_equal = 0.0, True
+    for key in got:
+        (beams, scores), (beams_p, scores_p) = got[key], want[key]
+        if not np.array_equal(beams, beams_p):
+            n = int((beams != beams_p).any(-1).sum())
+            raise AssertionError(f"{label} {key}: {n} beams differ from "
+                                 "the plain version's")
+        np.testing.assert_allclose(scores, scores_p, rtol=1e-6,
+                                   err_msg=f"{label} {key}: scores")
+        err = max(err, float(np.abs(scores - scores_p).max()))
+        bit_equal &= np.array_equal(scores, scores_p)
+    res, res_p = ctx["result"], twin["result"]
+    diff = {k: (res[k], res_p[k]) for k in HIT_KEYS
+            if k in res and res[k] != res_p[k]}
+    if diff:
+        raise AssertionError(f"{label}: metrics differ from plain {diff}")
+    return err, bit_equal
+
+
+def phase_scenarios(args):
+    """``cold_start_amazon`` (2,000 items, RQ-VAE 400 steps, GR 500 steps,
+    beam 20), ``multi_constraint`` and ``refresh_churn`` (5,000 items) at
+    their full sizes through ``ScenarioRegistry.resolve(...).run()`` on the
+    card, each passing its own gates with the stacked top-k kernel launched
+    (counters zeroed just before each run and read just after); then
+    ``cold_start_amazon`` at smoke size with the trie-aware loss; each run
+    held against its :func:`plain_twin`.  Returns
+    (summary, the stacked top-k launches of the scenarios' runs)."""
+    from repro_torch.kernels import vntk as kv
+    from repro_torch.scenarios import get_default_registry
+
+    reg = get_default_registry()
+    runs = [(name, False, {}) for name in SCENARIOS]
+    runs.append(("cold_start_amazon", True, {"train.trie_aware_weight": 0.5}))
+    out, topk = {}, 0
+    for name, smoke, overrides in runs:
+        label = name + (" (smoke, trie-aware)" if smoke else "")
+        run = reg.resolve(name, smoke=smoke, overrides=overrides,
+                          seed=args.seed)
+        kv.reset_launches()
+        t0 = time.time()
+        ctx = run.run(log=lambda m: log(f"    {m}"))
+        seconds = time.time() - t0
+        launches = {k: v for k, v in kv.LAUNCHES.items() if v}
+        res = ctx["result"]
+        if set(launches) != {"vntk_stacked_topk"}:
+            raise AssertionError(f"{label}: VNTK launches {launches}, "
+                                 "expected only the stacked top-k kernel")
+        if not res["gates"]["passed"]:
+            raise AssertionError(f"{label}: gates failed {res['gates']}")
+        if "compliance" in res and res["compliance"] != 1.0:
+            raise AssertionError(f"{label}: compliance {res['compliance']}")
+        meta = res["serve_meta"]
+        if meta["unexpected_recompiles"]:
+            raise AssertionError(f"{label}: {meta['unexpected_recompiles']} "
+                                 "unexpected specializations")
+        topk += launches["vntk_stacked_topk"]
+        t0 = time.time()
+        err, bit_equal = plain_twin(reg, name, smoke, overrides, args, ctx,
+                                    label)
+        keys = HIT_KEYS + ("n_cold", "n_test")
+        out[label] = dict({k: res[k] for k in keys if k in res},
+                          launches=launches["vntk_stacked_topk"],
+                          versions=meta.get("versions"),
+                          cold_swaps=meta.get("cold_swaps"),
+                          seconds=seconds, plain_max_abs_err=err,
+                          plain_bit_equal=bool(bit_equal),
+                          plain_seconds=time.time() - t0)
+        log(f"  {label}: gates passed; {json.dumps(out[label])}")
+    return out, topk
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -3381,9 +3785,34 @@ def main() -> int:
     bag_launches = phase_recsys(args, rng)
     peaks.append(torch.cuda.max_memory_allocated())
     log(f"  phase 10 peak device memory {peaks[-1] / 1e9:.1f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"phase 11: training at full width ("
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
+    t0 = time.time()
+    train_rng = np.random.default_rng([args.seed, 11])  # earlier phases unmoved
+    training = {"gr": phase_train_gr(args, train_rng)}
+    peaks.append(torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    training["fm"], fm_rows, fm_launches = phase_train_fm(args, train_rng,
+                                                           args.seed)
+    training["fm"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    peaks.append(torch.cuda.max_memory_allocated())
+    for shape, n in fm_launches.items():
+        bag_launches[shape] = bag_launches.get(shape, 0) + n
+    training["seconds"] = time.time() - t0
+    print(json.dumps({"training": training}), flush=True)
+    log(f"  phase 11 took {training['seconds']:.1f}s")
+    log("phase 12: scenarios at full size")
+    t0 = time.time()
+    scenarios, scenario_topk = phase_scenarios(args)
+    launches["vntk_stacked_topk"] += scenario_topk
+    print(json.dumps({"scenarios": scenarios}), flush=True)
+    log(f"  phase 12 took {time.time() - t0:.1f}s")
 
     peak = max(peaks)
-    log(f"phase 11: report ({time.time() - t_start:.1f}s total; peak device "
+    log(f"phase 13: report ({time.time() - t_start:.1f}s total; peak device "
         f"memory {peak / 1e9:.1f} GB)")
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -3399,7 +3828,7 @@ def main() -> int:
             plain_ms=float(plain_ms), bound_ms=float(bound), bound_by="bytes",
             library_ms=None, path=chk.main_path()))
     rows += cont_rows
-    rows += bag_report(bag_rows, bag_launches)
+    rows += bag_report(bag_rows + fm_rows, bag_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Transformer and recsys config dataclasses — a copy of ``repro.configs.base``.
+"""Transformer, recsys and RQ-VAE config dataclasses, and the registry's
+bundle — a copy of ``repro.configs.base``.
 
 Field for field the same as the reference, so a config built for one package
 builds the other (``TransformerConfig(**dataclasses.asdict(cfg))``,
@@ -119,3 +120,29 @@ RECSYS_SHAPES = (
     RecsysShape("serve_bulk", "serve", 262_144),
     RecsysShape("retrieval_cand", "retrieval", 1, n_candidates=1_000_000),
 )
+
+
+# --------------------------------------------------------------------------
+# RQ-VAE (Semantic-ID tokenizer for the paper's generative retrieval stack)
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RQVAEConfig:
+    feat_dim: int = 64
+    latent_dim: int = 32
+    n_levels: int = 4  # SID length L
+    codebook_size: int = 256  # |V|
+    enc_hidden: tuple = (128, 64)
+    commitment_weight: float = 0.25
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchBundle:
+    """What the registry hands to the launcher: config + shapes + family."""
+
+    arch_id: str
+    family: str  # "lm" | "gnn" | "recsys" | "gr"
+    config: object
+    shapes: tuple
+    notes: str = ""

@@ -1,7 +1,7 @@
 """mind [recsys] — embed_dim=64 n_interests=4 capsule_iters=3
 interaction=multi-interest.  [arXiv:1904.08030]  Same values as
 ``repro.configs.mind``."""
-from repro_torch.configs.base import RECSYS_SHAPES, RecsysConfig
+from repro_torch.configs.base import ArchBundle, RECSYS_SHAPES, RecsysConfig
 
 CONFIG = RecsysConfig(
     name="mind",
@@ -16,3 +16,14 @@ CONFIG = RecsysConfig(
 )
 
 SHAPES = RECSYS_SHAPES
+
+BUNDLE = ArchBundle(
+    arch_id="mind",
+    family="recsys",
+    config=CONFIG,
+    shapes=SHAPES,
+    notes=(
+        "retrieval_cand scores 1M candidates with a single batched "
+        "max-over-interests dot (no loop). STATIC inapplicable."
+    ),
+)

@@ -1,7 +1,7 @@
 """wide-deep [recsys] — n_sparse=40 embed_dim=32 mlp=1024-512-256
 interaction=concat.  [arXiv:1606.07792]  Same values as
 ``repro.configs.wide_deep``."""
-from repro_torch.configs.base import RECSYS_SHAPES, RecsysConfig
+from repro_torch.configs.base import ArchBundle, RECSYS_SHAPES, RecsysConfig
 
 # 40 hashed categorical features, production-representative row counts.
 _VOCABS = tuple([10_000, 100_000, 1_000_000, 10_000_000] * 10)
@@ -18,3 +18,11 @@ CONFIG = RecsysConfig(
 )
 
 SHAPES = RECSYS_SHAPES
+
+BUNDLE = ArchBundle(
+    arch_id="wide-deep",
+    family="recsys",
+    config=CONFIG,
+    shapes=SHAPES,
+    notes="STATIC inapplicable (non-autoregressive scorer).",
+)

@@ -18,7 +18,7 @@ from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.decoding.backends import HashBitmapBackend, PPVBackend
 from repro_torch.models.transformer import check_supported, torch_dtype
 
-__all__ = ["params_from_jax", "recsys_params_from_jax",
+__all__ = ["params_from_jax", "recsys_params_from_jax", "rqvae_params_from_jax",
            "transition_matrix_from_numpy", "store_from_numpy",
            "slab_from_numpy", "ppv_backend_from_numpy",
            "hash_bitmap_backend_from_numpy"]
@@ -69,6 +69,22 @@ def recsys_params_from_jax(params_np, cfg: RecsysConfig, device=None):
         if a.dtype.name == "bfloat16":
             return _tensor(a, torch.bfloat16, dev)
         return torch.from_numpy(np.array(a)).to(dev)
+
+    return conv(params_np)
+
+
+def rqvae_params_from_jax(params_np, device=None):
+    """The reference's RQ-VAE parameter pytree (numpy leaves:
+    ``encoder``/``decoder`` MLPs ``l{i}`` -> ``{w, b}``, ``codebooks``) as
+    the port's float32 dict."""
+    dev = resolve_device(device)
+    if "codebooks" not in params_np:
+        raise ValueError("not an RQ-VAE parameter tree")
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor(tree, torch.float32, dev)
 
     return conv(params_np)
 

@@ -219,6 +219,62 @@ def embedding_bag_grouped_cuda(tables, indices: torch.Tensor,
     return out
 
 
+def _row_grad(table_shape, dtype, indices, grad, mode: str) -> torch.Tensor:
+    """The gradient of one table: each bag's output gradient, accumulated in
+    float32 (divided by K for ``mean``) into the rows at its K clamped ids
+    (the rows the forward read, the sentinel among them), cast once to the
+    table's dtype.  ``index_add_``: deterministic on the card only under
+    ``torch.use_deterministic_algorithms(True)``."""
+    B, K = indices.shape
+    g = grad.float()
+    if mode == "mean":
+        g = g / K
+    ids = indices.clamp(0, table_shape[0] - 1).reshape(-1).long()
+    acc = torch.zeros(table_shape, dtype=torch.float32, device=grad.device)
+    acc.index_add_(0, ids, g[:, None, :].expand(B, K, g.shape[-1]).reshape(
+        B * K, g.shape[-1]))
+    return acc.to(dtype)
+
+
+class _Bag(torch.autograd.Function):
+    """:func:`embedding_bag_cuda` under autograd (the kernel has no
+    backward of its own; the reference's has none either: XLA scatters)."""
+
+    @staticmethod
+    def forward(ctx, table, indices, mode):
+        ctx.save_for_backward(indices)
+        ctx.meta = (tuple(table.shape), table.dtype, mode)
+        return embedding_bag_cuda(table, indices, mode)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        (indices,) = ctx.saved_tensors
+        shape, dtype, mode = ctx.meta
+        return _row_grad(shape, dtype, indices, grad, mode), None, None
+
+
+class _BagGrouped(torch.autograd.Function):
+    """:func:`embedding_bag_grouped_cuda` under autograd: table f's
+    gradient is :func:`_row_grad` of output column f at id column f."""
+
+    @staticmethod
+    def forward(ctx, indices, mode, *tables):
+        ctx.save_for_backward(indices)
+        ctx.meta = ([(tuple(t.shape), t.dtype) for t in tables], mode)
+        return embedding_bag_grouped_cuda(tables, indices, mode)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (indices,) = ctx.saved_tensors
+        metas, mode = ctx.meta
+        return (None, None) + tuple(
+            _row_grad(shape, dtype, indices[:, f], grad[:, f], mode)
+            if ctx.needs_input_grad[2 + f] else None
+            for f, (shape, dtype) in enumerate(metas))
+
+
 def embedding_bag_plain(table: torch.Tensor, indices: torch.Tensor,
                         mode: str = "sum") -> torch.Tensor:
     """Plain PyTorch version of :func:`embedding_bag_cuda` (any device):

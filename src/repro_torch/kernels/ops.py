@@ -10,6 +10,8 @@ their plain versions.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import vntk as _k
 
@@ -108,16 +110,22 @@ def vntk_compressed_topk(values, nodes, row_pointers, tok_delta, base,
 def embedding_bag(table, indices, mode: str = "sum", impl=None):
     """Fixed-arity EmbeddingBag: (B, K) int32 ids into a (R+1, D) table ->
     (B, D) sums or means over K, accumulated in float32 (ids clamped into
-    ``[0, R]``; row R is the zero sentinel)."""
-    fn = (_bag.embedding_bag_cuda if _use_kernel(table, impl)
-          else _bag.embedding_bag_plain)
-    return fn(table, indices, mode)
+    ``[0, R]``; row R is the zero sentinel).  Differentiable in ``table``
+    on either route: the kernel runs under an ``autograd.Function`` when
+    the table needs a gradient."""
+    if not _use_kernel(table, impl):
+        return _bag.embedding_bag_plain(table, indices, mode)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _bag._Bag.apply(table, indices, mode)
+    return _bag.embedding_bag_cuda(table, indices, mode)
 
 
 def embedding_bag_grouped(tables, indices, mode: str = "sum", impl=None):
     """EmbeddingBag over F tables of one width and dtype: (B, F, K) int32
     ids -> (B, F, D), table f looked up by column f, as
     :func:`embedding_bag` per table but in one launch per 64 tables."""
-    fn = (_bag.embedding_bag_grouped_cuda if _use_kernel(indices, impl)
-          else _bag.embedding_bag_grouped_plain)
-    return fn(tables, indices, mode)
+    if not _use_kernel(indices, impl):
+        return _bag.embedding_bag_grouped_plain(tables, indices, mode)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        return _bag._BagGrouped.apply(indices, mode, *tables)
+    return _bag.embedding_bag_grouped_cuda(tables, indices, mode)

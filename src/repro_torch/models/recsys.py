@@ -19,9 +19,12 @@ Batch layout (all models), tensors on the parameters' device:
   sparse : (B, n_sparse, K) int32   multi-hot ids  [K = cfg.multi_hot]
   hist   : (B, hist_len) int32                     [mind only]
   target : (B,) int32 candidate item               [mind only]
+  label  : (B,) float32 click label                [recsys_loss]
 
-Not ported: ``param_specs`` (JAX sharding) and ``recsys_loss`` (training;
-the bag kernel has no backward yet).
+:func:`recsys_loss` trains through the same lookups: on the card the bag
+kernel's launches sit under ``torch.autograd.Function``s whose backward
+scatter-adds into the tables' rows (``kernels/embedding_bag.py``).  Not
+ported: ``param_specs`` (JAX sharding).
 """
 from __future__ import annotations
 
@@ -29,18 +32,12 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.configs.dlrm_mlperf import DLRM_CRITEO_VOCABS
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _he, mlp, mlp_init
 
-__all__ = ["init_params", "forward", "mind_interests", "mind_retrieval_scores",
-           "DLRM_CRITEO_VOCABS", "padded_rows"]
-
-# MLPerf DLRM (Criteo Terabyte) per-table row counts.
-DLRM_CRITEO_VOCABS = (
-    39884406, 39043, 17289, 7420, 20263, 3, 7120, 1543, 63, 38532951,
-    2953546, 403346, 10, 2208, 11938, 155, 4, 976, 14, 39979771,
-    25641295, 39664984, 585935, 12972, 108, 36,
-)
+__all__ = ["init_params", "forward", "recsys_loss", "mind_interests",
+           "mind_retrieval_scores", "DLRM_CRITEO_VOCABS", "padded_rows"]
 
 
 def _dtype(cfg: RecsysConfig) -> torch.dtype:
@@ -240,3 +237,12 @@ def forward(params, batch, cfg: RecsysConfig, impl=None) -> torch.Tensor:
     (:func:`repro_torch.kernels.ops.embedding_bag_grouped`): ``None``
     launches the kernel on the card, ``"plain"`` takes the plain version."""
     return _FWD[cfg.model](params, batch, cfg, impl)
+
+
+def recsys_loss(params, batch, cfg: RecsysConfig, impl=None) -> torch.Tensor:
+    """Mean binary cross-entropy of the (B,) scores against
+    ``batch["label"]``, the reference's stable BCE-with-logits form."""
+    logits = forward(params, batch, cfg, impl)
+    y = batch["label"].float()
+    return torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * y + torch.log1p(torch.exp(-torch.abs(logits))))

@@ -11,7 +11,10 @@ loop takes the place of ``lax.scan``)::
                  "ffn": {"w1", "w3", "w2"}}, ...]}
 
 MLA, MoE, sliding-window attention and deferred cache writes are not
-ported yet; configs asking for them raise.  :func:`paged_decode_step` is the
+ported yet; configs asking for them raise.  :func:`lm_loss` and
+:func:`lm_loss_trie_aware` are the training losses (the layer body is
+recomputed in the backward when ``cfg.remat``, as the reference's
+``jax.checkpoint`` does).  :func:`paged_decode_step` is the
 continuous engine's decode step over a paged history (DESIGN.md §10);
 :func:`gr_decode_step` the prefix-shared generative-retrieval step (one
 history cache per request, a short private suffix per beam).
@@ -19,6 +22,7 @@ history cache per request, a short private suffix per beam).
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import TransformerConfig
@@ -31,7 +35,8 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import apply_rope, rms_norm, swiglu
 
-__all__ = ["init_params", "forward", "prefill", "decode_step",
+__all__ = ["init_params", "forward", "lm_loss", "lm_loss_trie_aware",
+           "prefill", "decode_step",
            "gr_decode_step", "paged_decode_step", "torch_dtype"]
 
 
@@ -118,7 +123,7 @@ def _unemb(params, cfg):
 
 
 # --------------------------------------------------------------------------
-# Full-sequence forward (prefill)
+# Full-sequence forward (training / prefill)
 # --------------------------------------------------------------------------
 
 
@@ -132,10 +137,12 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
     B, S = tokens.shape
     hd = cfg.resolved_head_dim()
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    x = params["emb"][tokens.long()]
+    # a gather whose CPU backward is deterministic (indexing's backward
+    # adds rows from several threads, in an order that varies between runs)
+    x = torch.nn.functional.embedding(tokens.long(), params["emb"])
     pos = torch.arange(S, device=x.device)[None]
-    ks, vs = [], []
-    for p in params["layers"]:
+
+    def layer(x, p):
         h = rms_norm(p["ln_attn"], x, cfg.norm_eps)
         a = p["attn"]
         q = apply_rope(_proj(a["wq"], h, H, hd), pos, cfg.rope_theta)
@@ -145,11 +152,86 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
                                        chunk_kv=cfg.attn_chunk_kv)
         x = x + out.reshape(B, S, H * hd) @ a["wo"]["w"]
         x = x + swiglu(p["ffn"], rms_norm(p["ln_ffn"], x, cfg.norm_eps))
+        return x, k, v
+
+    # the reference's jax.checkpoint of the layer body: under autograd each
+    # layer keeps only its input and recomputes the rest in the backward
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    ks, vs = [], []
+    for p in params["layers"]:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                lambda x, p=p: layer(x, p)[0], x, use_reentrant=False)
+            continue
+        x, k, v = layer(x, p)
         if collect_cache:
             ks.append(k)
             vs.append(v)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return x, ((torch.stack(ks), torch.stack(vs)) if collect_cache else None)
+
+
+def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig,
+            ce_chunk: int | None = None) -> torch.Tensor:
+    """Next-token CE, computed in sequence chunks (no (T, V) logits tensor
+    is kept: each chunk's logits are recomputed in the backward, the
+    reference's ``jax.checkpoint``).
+
+    The full sequence is forwarded and the final position is masked out of
+    the loss, as in the reference.  The MoE auxiliary loss is 0: the port
+    has no MoE (``check_supported``).
+    """
+    x, _ = forward(params, tokens, cfg)
+    labels = torch.roll(tokens.long(), -1, dims=1)
+    B, S, D = x.shape
+    valid = (torch.arange(S, device=x.device) < S - 1).float()
+    w = _unemb(params, cfg)
+    chunk = min(ce_chunk or cfg.ce_chunk, S)
+    while S % chunk:
+        chunk //= 2
+
+    def body(xc, lc, vc):
+        logits = (xc @ w).float()  # (B, chunk, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return torch.sum((lse - ll) * vc)
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        args = (x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk],
+                valid[c0:c0 + chunk])
+        tot = tot + (torch.utils.checkpoint.checkpoint(
+            body, *args, use_reentrant=False)
+            if torch.is_grad_enabled() else body(*args))
+    return tot / (B * (S - 1))
+
+
+def lm_loss_trie_aware(params, tokens: torch.Tensor, cfg: TransformerConfig,
+                       adm_mask: torch.Tensor, weight: float) -> torch.Tensor:
+    """Next-token CE + the trie-aware admissible-mass auxiliary loss.
+
+    ``adm_mask`` is (B, S, V) bool: the constrained decoder's admissible
+    token set at the position of the token AT each index (the per-prefix
+    sets of :mod:`repro_torch.scenarios.trie_signal`, gathered per item).
+    The auxiliary term is ``logsumexp(logits) - logsumexp(logits[adm])``,
+    i.e. -log P(admissible), averaged over the scored positions.  Dense
+    (B, S, V) logits: this loss serves the small GR retrieval model.
+    """
+    x, _ = forward(params, tokens, cfg)
+    labels = torch.roll(tokens.long(), -1, dims=1)
+    # align masks with labels: position p scores the token at p+1
+    mask = torch.roll(adm_mask, -1, dims=1)
+    B, S, D = x.shape
+    valid = (torch.arange(S, device=x.device) < S - 1).float()
+    logits = (x @ _unemb(params, cfg)).float()  # (B, S, V)
+    lse_full = torch.logsumexp(logits, dim=-1)
+    # -1e30 (not -inf): an all-False row would otherwise give nan gradients
+    lse_adm = torch.logsumexp(torch.where(mask, logits, -1e30), dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None])[..., 0]
+    denom = B * (S - 1)
+    ce = torch.sum((lse_full - ll) * valid) / denom
+    trie_aux = torch.sum((lse_full - lse_adm) * valid) / denom
+    return ce + weight * trie_aux
 
 
 def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,

@@ -926,3 +926,139 @@ def test_guard_gap_faults_on_a_read_past_the_slab():
     assert "NO FAULT" not in out.stdout
     assert out.returncode != 0
     assert "illegal memory access" in out.stderr, out.stderr[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# training on the card: the bag's gradient, the bf16 attention backward, a
+# Trainer step
+# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,mode", [(torch.float32, "sum"),
+                                        (torch.float32, "mean"),
+                                        (torch.bfloat16, "sum")])
+def test_bag_gradient_on_the_card_matches_the_plain_route(rng, dtype, mode):
+    """The kernel route's ``autograd.Function`` vs torch's autograd through
+    the plain version, for one table and for a group of three (ids out of
+    range included: the clamped rows get their gradient).  Every table's
+    ``.grad`` must be set.  float32: equal, both scatters run under
+    ``torch.use_deterministic_algorithms``.  bfloat16: the kernel route
+    accumulates in float32 where the plain route adds in bfloat16, so the
+    kernel route is held against a float64 sum on the host instead, within
+    one bfloat16 ulp (rtol 2^-7) of its rounding."""
+    _card()
+    B, K, D = 300, 3, 16
+    tables = [_inputs(rng, B, K, D, dtype, R=R)[0] for R in (50, 200, 7)]
+    ids = torch.from_numpy(np.stack(
+        [rng.integers(-3, R + 6, (B, K)) for R in (50, 200, 7)],
+        axis=1).astype(np.int32)).cuda()
+    cot = torch.randn(B, 3, D, device="cuda").to(dtype)
+    grads = {}
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for impl in (None, "plain"):
+            ts = [t.clone().requires_grad_(True) for t in tables]
+            n = bag.LAUNCHES["embedding_bag"]
+            out = ops.embedding_bag_grouped(ts, ids, mode, impl=impl)
+            single = ops.embedding_bag(ts[1], ids[:, 1], mode, impl=impl)
+            assert out.requires_grad and single.requires_grad
+            assert bag.LAUNCHES["embedding_bag"] - n == (2 if impl is None
+                                                         else 0)
+            ((out.float() * cot.float()).sum()
+             + (single.float() * cot[:, 1].float()).sum()).backward()
+            assert all(t.grad is not None for t in ts)
+            grads[impl] = [t.grad for t in ts]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    ids64 = ids.cpu().long()
+    for f, (got, want) in enumerate(zip(grads[None], grads["plain"])):
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            assert torch.equal(got, want)
+            continue
+        g = cot[:, f].double().cpu() / (K if mode == "mean" else 1)
+        if f == 1:  # the single-table call adds its own cotangent
+            g = g * 2
+        exact = torch.zeros(tables[f].shape, dtype=torch.float64)
+        exact.index_add_(0, ids64[:, f].clamp(0, tables[f].shape[0] - 1)
+                         .reshape(-1), g[:, None].expand(B, K, D).reshape(
+                             B * K, D))
+        torch.testing.assert_close(got.cpu().double(), exact.to(dtype).double(),
+                                   rtol=2 ** -7, atol=1e-30)
+
+
+@pytest.mark.gpu
+def test_recsys_tables_never_come_back_detached_on_the_card(rng):
+    """recsys_loss through the kernel route: every table and wide table of
+    FM's smoke config gets a gradient, and the loss equals impl='plain'."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import recsys
+
+    _card()
+    cfg = smoke_config("fm")
+    params = recsys.init_params(cfg, seed=0, device="cuda")
+    sparse = np.stack([rng.integers(0, v + 2, (64, 1))
+                       for v in cfg.vocab_sizes], axis=1).astype(np.int32)
+    batch = {"sparse": torch.from_numpy(sparse).cuda(),
+             "label": torch.from_numpy(rng.integers(0, 2, 64).astype(
+                 np.float32)).cuda()}
+    for p in params.values():
+        p.requires_grad_(True)
+    loss = recsys.recsys_loss(params, batch, cfg)
+    loss.backward()
+    for k, p in params.items():
+        assert p.grad is not None, k
+    assert float(p.grad.abs().sum()) > 0
+    with torch.no_grad():
+        plain = recsys.recsys_loss(params, batch, cfg, impl="plain")
+    assert torch.equal(loss.detach(), plain)
+
+
+@pytest.mark.gpu
+def test_lm_loss_backward_in_bf16_on_the_card():
+    """static-gr's smoke config in bfloat16 on the card: the attention's
+    float32-output products run under their ``autograd.Function``; the
+    loss within 2e-2 and each gradient within a relative L2 error of 5e-2
+    of a float32 recompute from the same (bf16-valued) weights."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.training.tree import flatten_with_path, tree_map
+
+    _card()
+    cfg = dataclasses.replace(smoke_config("static-gr"), dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p16 = transformer.init_params(cfg, seed=0, device="cuda")
+    p32 = tree_map(lambda t: t.float(), p16)
+    tok = torch.randint(0, cfg.vocab_size, (4, 32), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    out = {}
+    for name, p, c in (("bf16", p16, cfg), ("f32", p32, cfg32)):
+        leaves = [l.requires_grad_(True) for _, l in flatten_with_path(p)]
+        loss = transformer.lm_loss(p, tok, c)
+        out[name] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+    torch.testing.assert_close(out["bf16"][0], out["f32"][0], rtol=2e-2,
+                               atol=0)
+    for g16, g32 in zip(out["bf16"][1], out["f32"][1]):
+        assert g16.dtype == torch.bfloat16
+        err = (g16.float() - g32).norm() / g32.norm().clamp_min(1e-12)
+        assert float(err) < 5e-2
+
+
+@pytest.mark.gpu
+def test_one_trainer_step_on_the_card():
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.train import build, synth_batches
+    from repro_torch.training import Trainer, TrainerConfig, adamw
+
+    _card()
+    cfg, params, loss_fn = build("static-gr", "cuda")
+    before = params["emb"].clone()
+    t = Trainer(loss_fn, adamw(lr=1e-3), params,
+                TrainerConfig(n_steps=1, microbatches=2))
+    losses = t.fit(synth_batches("static-gr", cfg, 4), log=lambda *a: None)
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    assert t.params["emb"].is_cuda
+    assert not torch.equal(t.params["emb"], before)
+    assert t.opt_state["m"]["emb"].dtype == torch.float32
+    assert smoke_config("static-gr").n_layers == len(t.params["layers"])
