@@ -313,7 +313,34 @@ Phases (any failure raises and the script exits non-zero):
               beams, scores within rtol 1e-6, equal hit metrics.  One
               ``{"scenarios": ...}`` line with hit@M and recall@1,
               constrained against unconstrained.
-13. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
+13. families — the other model families at full width, bf16, seeded random
+              weights, each model freed before the next (phases 1–12's
+              tensors released first): deepseek-v2-lite-16b at its published
+              size (27 layers, MLA, 64 routed experts top-6 + 2 shared, the
+              first layer dense) — (f) one MoE layer with dispatch_groups 4
+              against 0 where no token drops, (a) prefill_32k at B = 1, (b)
+              decode_32k at B = 32 and (c) long_500k at B = 1 on seeded
+              latent caches, (d) prefill S = 2,048 + 8 decode steps held
+              against one forward over all 2,056 tokens, in bf16 and again
+              in float32 at full depth, (e) a float32 deferred-write step
+              against the eager one, (g) one ``Trainer`` step at depth 2 on
+              4 x 4,096 tokens (every expert with a kept token gets a
+              gradient, no other); mixtral-8x7b at full width and 16 of 32
+              layers — prefill S = 8,192 into its 4,096-slot ring, 16
+              decode steps held against one forward, decode_32k at B = 64
+              on a seeded ring; stablelm-12b and codeqwen1.5-7b at full
+              size and qwen1.5-110b at 8 of 80 layers — prefill S = 2,048,
+              8 decode steps, the same check.  Each consistency check is
+              gated at max(0.25, 3 x the same forward's relative L2 change
+              under other attention chunks), and each LM is held in float32
+              at full width and depth 2 at 1e-4 with every top-1 equal.
+              meshgraphnet at its published size, 3 ``Trainer`` steps on
+              full_graph_sm, molecule and a (15, 10) fanout sample of 1,024
+              seeds from a random graph of Reddit's size (minibatch_lg).
+              Prefill and decode ms by CUDA events, peak GB; one
+              ``{"families": ...}`` line.  No kernel of the repository is
+              on this path.
+14. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
               with a row per kernel function (a VNTK row with the ``path``
               its main-path levels took, ``warp`` or ``block``, for topk
               and mask alike, and phase 7's two ``block`` rows; for the bag,
@@ -3665,6 +3692,642 @@ def phase_scenarios(args):
     return out, topk
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the other model families at full width
+# ---------------------------------------------------------------------------
+# Consistency: prefill FAM_S tokens, decode FAM_STEPS more, and hold the
+# logits of the prefill's last position and of every decode step against one
+# forward over the whole sequence.  The two paths round at different places
+# (matrix products of 1 row against S rows, the absorbed MLA decode against
+# the materialized keys), and a deep model amplifies rounding: so the same
+# forward run again with other attention chunks (the same function, its
+# sums in another order) measures the model's own noise, and the logits'
+# relative L2 error may be at most FAM_NOISE times that noise, or the
+# precision's floor where the noise is smaller: FAM_GATE in bf16
+# (correlation >= ~0.97), FAM_F32_FLOOR in float32.  A gate above
+# FAM_GATE_CEIL fails the check itself (unrelated logits give ~1.4): a
+# model that noisy would pass anything.  The arithmetic is held tight at
+# full width in float32 and depth 2 (TF32 off): relative L2 error at most
+# FAM_F32_GATE, every top-1 equal.
+#
+# The MoE models under seeded random weights are chaotic in depth in bf16:
+# a rounding that flips one of a token's top-k experts (a near tie)
+# reroutes the later layers.  On the card (PERF.md §6) their bf16 forward
+# against itself rechunked differs by a relative L2 error of ~0.86
+# (deepseek, 27 layers) and ~0.3-0.5 (mixtral, 16 layers), where the dense
+# models' differs by 0.02-0.06; drawing the experts' w1/w3 at fan-in
+# d_model instead of the reference's E left both above 0.17.  A gate of 3x
+# that would admit nearly unrelated logits, so the MoE models' bf16
+# consistency is measured and not gated.  Their gated checks are float32:
+# deepseek's consistency and deferred writes at full depth (62.8 GB; its
+# rechunking noise there ~3e-4) and mixtral's ring at depth 2.
+FAM_S = 2_048
+FAM_STEPS = 8
+FAM_GATE = 0.25
+FAM_F32_FLOOR = 1e-3
+FAM_GATE_CEIL = 0.5
+FAM_NOISE = 3.0
+FAM_F32_GATE = 1e-4
+MIXTRAL_LAYERS = 16  # of 32: the full 46.7B (93.4 GB in bf16) does not fit
+QWEN110_LAYERS = 8  # of 80 (26.7 GB)
+DS_TRAIN_BATCH = 4  # x train_4k's 4,096 tokens (global_batch 256 cut)
+GNN_STEPS = 3
+
+
+def divisor_chunk(n: int, cap: int) -> int:
+    """The largest chunk <= ``cap`` that divides ``n``: the forward's
+    attention chunks over S + steps tokens (S + 8 = 2,056 = 8 x 257 would
+    halve the published 512/1,024 down to 8).  Chunking is a schedule: it
+    changes the order of the online softmax's sums, not the attention."""
+    return max(d for d in range(1, cap + 1) if n % d == 0)
+
+
+def rel_l2(got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-30))
+
+
+def lm_agreement(got, want, gate, top1_gate=None) -> dict:
+    """Logits (rows, V) of two paths: max abs error, relative L2 error and
+    top-1 agreement; raises when the logits are not finite, the relative
+    error passes ``gate`` (None: measured only) or the top-1 agreement
+    falls below ``top1_gate``."""
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    out = dict(max_abs_err=float((got - want).abs().max()),
+               scale=float(want.abs().max()), rel_l2=rel_l2(got, want),
+               top1=top1, gate_rel_l2=gate, rows=int(got.shape[0]))
+    if not torch.isfinite(got).all() or (
+            gate is not None and out["rel_l2"] > gate) or (
+            top1_gate is not None and top1 < top1_gate):
+        raise AssertionError(f"logits disagree: {out}")
+    return out
+
+
+def timed(fn):
+    """``(fn(), device ms)`` between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lm_consistency(params, cfg, tokens, S, steps, gate, top1_gate=None):
+    """Prefill ``tokens[:, :S]``, decode the next ``steps`` tokens, and hold
+    the ``steps + 1`` logits rows against one forward over all of them
+    (:func:`lm_agreement`).  Returns the agreement with the prefill's and the
+    median decode step's device ms, and the last cache (a ring for sliding
+    windows: it must stay ``window`` slots).
+
+    A MoE model runs at capacity factor E / K (:func:`no_drop`): an
+    expert's capacity counts the tokens of the call, so at the published
+    1.25 the forward over S + steps may drop a token that its decode step
+    alone keeps (the reference's semantics, not a fault, and no longer one
+    function to compare)."""
+    from repro_torch.models import transformer
+
+    cfg = no_drop(cfg)
+    B = tokens.shape[0]
+    with torch.no_grad():
+        (logits, cache), prefill_ms = timed(lambda: transformer.prefill(
+            params, tokens[:, :S], cfg, max_len=S + steps))
+        rows, step_ms = [logits[:, 0]], []
+        for t in range(S, S + steps):
+            (logits, cache), ms = timed(lambda t=t: transformer.decode_step(
+                params, cache, tokens[:, t:t + 1], cfg))
+            rows.append(logits[:, 0])
+            step_ms.append(ms)
+        n = S + steps
+        want = forward_rows(params, cfg, tokens[:, :n], S,
+                            divisor_chunk(n, 512), divisor_chunk(n, 1024))
+    got = torch.stack(rows).reshape(-1, want.shape[1])
+    out = lm_agreement(got, want, gate, top1_gate)
+    out.update(prefill_ms=prefill_ms, decode_ms=float(np.median(step_ms)),
+               batch=B, prompt=S, steps=steps)
+    if cfg.moe is not None:
+        out["capacity_factor"] = cfg.moe.capacity_factor
+    return out, cache
+
+
+def no_drop(cfg):
+    """A MoE config at capacity factor E / K, where no assignment can drop:
+    the capacity ``int(T * K * (E / K) / E) + 1`` rounded up to 8 is at
+    least the call's T tokens, and an expert gets at most one assignment
+    per token, since a token's top-k experts are distinct."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def forward_rows(params, cfg, tokens, S, chunk_q, chunk_kv):
+    """Logits rows S-1 .. n-1 of one forward over ``tokens`` (n of them)
+    at the given attention chunks, position-major, batch rows inside."""
+    from repro_torch.models import transformer
+
+    fcfg = dataclasses.replace(cfg, attn_chunk_q=chunk_q,
+                               attn_chunk_kv=chunk_kv)
+    with torch.no_grad():
+        x, _, _ = transformer.forward(params, tokens, fcfg)
+        w = params["emb"].T if cfg.tie_embeddings else params["unemb"]
+        return (x[:, S - 1:] @ w).float().transpose(0, 1).reshape(
+            -1, w.shape[1])
+
+
+def rechunk_noise(params, cfg, tokens, S) -> float:
+    """Relative L2 error between two forwards over the same tokens that
+    differ only in the attention's chunks (the same function; other orders
+    of the online softmax's sums): the precision's own noise, amplified as
+    the model amplifies it."""
+    cfg, n = no_drop(cfg), tokens.shape[1]
+    a = forward_rows(params, cfg, tokens, S, divisor_chunk(n, 512),
+                     divisor_chunk(n, 1024))
+    b = forward_rows(params, cfg, tokens, S, divisor_chunk(n, 256),
+                     divisor_chunk(n, 512))
+    return rel_l2(b, a)
+
+
+def noise_gated_consistency(params, cfg, tokens, S, steps):
+    """:func:`lm_consistency` gated at ``max(floor, FAM_NOISE *``
+    :func:`rechunk_noise` ``)`` over the same tokens, the floor FAM_GATE in
+    bf16 and FAM_F32_FLOOR in float32; fails when that gate passes
+    FAM_GATE_CEIL.  A MoE model in bf16 is measured only (the note
+    above)."""
+    noise = rechunk_noise(params, cfg, tokens, S)
+    gate = None
+    if cfg.moe is None or cfg.dtype == "float32":
+        floor = FAM_F32_FLOOR if cfg.dtype == "float32" else FAM_GATE
+        gate = max(floor, FAM_NOISE * noise)
+        if gate > FAM_GATE_CEIL:
+            raise AssertionError(f"{cfg.name}: rechunking noise {noise:.3g} "
+                                 f"puts the gate at {gate:.3g}, past "
+                                 f"{FAM_GATE_CEIL}")
+    out, cache = lm_consistency(params, cfg, tokens, S, steps, gate)
+    out["rechunk_rel_l2"] = noise
+    return out, cache
+
+
+def free_cuda():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_f32_check(cfg, rng, seed, S, steps):
+    """The same consistency at full width in float32, depth 2, every top-1
+    equal (a MoE model keeps its dense first layer)."""
+    from repro_torch.models import transformer
+
+    c32 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = transformer.init_params(c32, seed=seed, device="cuda")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S + steps))
+                              ).cuda()
+    out, _ = lm_consistency(params, c32, tokens, S, steps, FAM_F32_GATE, 1.0)
+    del params
+    free_cuda()
+    return {k: out[k] for k in ("max_abs_err", "scale", "rel_l2", "top1",
+                                "gate_rel_l2", "rows")}
+
+
+def seeded_decode_cache(cfg, batch, length, gen):
+    """A decode cache at position ``length - 1`` (decode_32k's and
+    long_500k's last token) whose earlier slots hold seeded normal values:
+    MLA latents of ``length`` slots, or a sliding window's ring of
+    ``window`` slots holding the positions before."""
+    from repro_torch.models import transformer
+
+    cache = transformer.init_cache(cfg, batch, length, device="cuda")
+    arrays = ((cache.c_kv, cache.k_rope) if cfg.attention == "mla"
+              else (cache.k, cache.v))
+    for a in arrays:
+        for i in range(a.shape[0]):
+            a[i].normal_(generator=gen)
+    pos = length - 1
+    slots = cache.slot_pos.shape[0]
+    positions = torch.arange(pos - min(pos, slots), pos, device="cuda")
+    cache.slot_pos[positions % slots] = positions.int()
+    cache.pos = pos
+    return cache
+
+
+def decode_timing(params, cfg, cache, rng, label):
+    """Median device ms of a decode step from ``cache`` (its last slot
+    rewritten each call); finite logits."""
+    from repro_torch.models import transformer
+
+    rows = (cache.c_kv if cfg.attention == "mla" else cache.k).shape[1]
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, 1))).cuda()
+    with torch.no_grad():
+        logits, _ = transformer.decode_step(params, cache, tok, cfg)
+        ms = event_ms(lambda: transformer.decode_step(params, cache, tok, cfg),
+                      reps=3)
+    if logits.shape != (rows, 1, cfg.vocab_size) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"{label}: bad decode logits")
+    return ms
+
+
+def tree_gb(tree) -> float:
+    return sum(v.numel() * v.element_size() for _, v in leaf_items(tree)) / 1e9
+
+
+def cache_gb(cache) -> float:
+    arrays = ((cache.c_kv, cache.k_rope) if hasattr(cache, "c_kv")
+              else (cache.k, cache.v))
+    return sum(a.numel() * a.element_size() for a in arrays) / 1e9
+
+
+class RouteLog:
+    """Records ``moe.route``'s (top_i, keep) while active (the dispatch
+    looks the function up in its module at each call)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        self.route = self.moe.route
+
+        def logged(*a, **kw):
+            out = self.route(*a, **kw)
+            self.calls.append((out[2].detach(), out[4].detach()))
+            return out
+
+        self.moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def ds_deferred(params, cfg, tokens, S):
+    """(e): one float32 deferred-write decode step against the eager step
+    from equal caches: logits within FAM_F32_FLOOR; the pending latents
+    against what the eager step wrote, layer 0 bit-equal (nothing rounds
+    differently before its attention) and all layers within FAM_F32_FLOOR;
+    the deferred step's cache arrays untouched."""
+    from repro_torch.models import transformer
+
+    with torch.no_grad():
+        _, cache = transformer.prefill(params, tokens[:, :S], cfg,
+                                       max_len=S + 1)
+        eager = dataclasses.replace(cache, c_kv=cache.c_kv.clone(),
+                                    k_rope=cache.k_rope.clone())
+        nxt = tokens[:, S:S + 1]
+        dcfg = dataclasses.replace(cfg, defer_cache_write=True)
+        before = cache.c_kv[:, :, S].clone()
+        d_logits, _, (c_new, kr_new) = transformer.decode_step(
+            params, cache, nxt, dcfg)
+        e_logits, _ = transformer.decode_step(params, eager, nxt, cfg)
+    if not torch.equal(cache.c_kv[:, :, S], before):
+        raise AssertionError("deferred decode wrote the cache")
+    out = lm_agreement(d_logits[:, 0], e_logits[:, 0], FAM_F32_FLOOR)
+    written = (eager.c_kv[:, :, S], eager.k_rope[:, :, S])
+    out["pending_rel_l2"] = max(rel_l2(c_new[:, :, 0], written[0]),
+                                rel_l2(kr_new[:, :, 0], written[1]))
+    out["pending_layer0_bit_equal"] = bool(
+        torch.equal(c_new[0, :, 0], written[0][0])
+        and torch.equal(kr_new[0, :, 0], written[1][0]))
+    if (out["pending_rel_l2"] > FAM_F32_FLOOR
+            or not out["pending_layer0_bit_equal"]):
+        raise AssertionError(f"deferred pending latents: {out}")
+    return out
+
+
+def ds_grouped(params, cfg, rng):
+    """(f): one MoE layer at full width on 2,048 rms-normed rows, flat
+    dispatch against dispatch_groups = 4 at a capacity that drops no token
+    (capacity factor E / K, :func:`no_drop`): equal routing, outputs within
+    2^-7 relative L2 (bf16 products of other row counts)."""
+    from repro_torch.models import moe
+    from repro_torch.models.layers import rms_norm
+
+    m = no_drop(cfg).moe
+    p = params["layers"][-1]["moe"]
+    x = torch.from_numpy(rng.normal(size=(1, FAM_S, cfg.d_model)).astype(
+        np.float32)).cuda()
+    x = rms_norm({"scale": torch.ones(cfg.d_model, device="cuda")},
+                 x).to(torch.bfloat16)
+    outs, routes = [], []
+    for g in (0, 4):
+        mg = dataclasses.replace(m, dispatch_groups=g)
+        with torch.no_grad(), RouteLog() as log_:
+            outs.append(moe.moe_ffn(p, x, mg)[0])
+        (top_i, _), = log_.calls
+        routes.append(top_i.reshape(-1))
+    err = rel_l2(outs[1], outs[0])
+    out = dict(groups=4, rows=FAM_S, capacity_factor=m.capacity_factor,
+               routing_equal=bool(torch.equal(routes[0], routes[1])),
+               rel_l2=err, gate_rel_l2=2.0 ** -7)
+    if not out["routing_equal"] or err > 2.0 ** -7:
+        raise AssertionError(f"grouped dispatch: {out}")
+    return out
+
+
+def ds_train(cfg, rng, seed):
+    """(g): one ``Trainer`` + ``adamw`` step at full width, depth 2 (the
+    dense first layer and one MoE layer) on 4 x 4,096 tokens: the loss
+    finite, every float32 moment finite, and the MoE layer's expert
+    moments nonzero on exactly the experts its routing kept a token for."""
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.models import transformer
+    from repro_torch.training import Trainer, TrainerConfig, adamw
+
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    params = transformer.init_params(c2, seed=seed, device="cuda")
+    shape = next(s for s in LM_SHAPES if s.name == "train_4k")
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (
+        DS_TRAIN_BATCH, shape.seq_len)).astype(np.int32)}
+    trainer = Trainer(lambda p, b: transformer.lm_loss(p, b["tokens"], c2),
+                      adamw(lr=GR_TRAIN_LR), params,
+                      TrainerConfig(n_steps=1))
+    with RouteLog() as log_:
+        (loss, ms) = timed(lambda: trainer.train_one(batch))
+    top_i, keep = log_.calls[0]  # the forward's (the recompute's is equal)
+    E = cfg.moe.n_experts
+    used = torch.zeros(E, dtype=torch.bool, device="cuda")
+    used[top_i.reshape(-1)[keep.reshape(-1)]] = True
+    m = trainer.opt_state["m"]
+    finite = all(bool(torch.isfinite(v).all()) for _, v in leaf_items(m))
+    moved = {k: (m["layers"][1]["moe"][k].reshape(E, -1) != 0).any(-1)
+             for k in ("w1", "w2", "w3")}
+    out = dict(layers=2, batch=DS_TRAIN_BATCH, seq=shape.seq_len, loss=loss,
+               step_ms=ms, experts_used=int(used.sum()), moments_finite=finite,
+               experts_with_gradient={k: int(v.sum()) for k, v in
+                                      moved.items()})
+    if (not np.isfinite(loss) or not finite
+            or not all(torch.equal(v, used) for v in moved.values())):
+        raise AssertionError(f"deepseek training step: {out}")
+    del trainer, params, m
+    free_cuda()
+    return out
+
+
+def family_deepseek(args, rng):
+    """deepseek-v2-lite-16b at its published size.  In bf16: (f) grouped
+    dispatch, (a) prefill_32k at B = 1, (b) decode_32k at B = 32, (c)
+    long_500k at B = 1 (its bonus cell) and (d) the consistency; in float32
+    at full depth: (d) again and (e) deferred writes; then (g) a training
+    step at depth 2 and the float32 depth-2 check."""
+    from repro_torch.configs import deepseek_v2_lite_16b
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.models import transformer
+
+    cfg = deepseek_v2_lite_16b.CONFIG
+    shapes = {s.name: s for s in LM_SHAPES}
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    out = dict(layers=cfg.n_layers, params_b=cfg.param_count() / 1e9,
+               active_params_b=cfg.active_param_count() / 1e9,
+               weights_gb=tree_gb(params))
+    log(f"  {cfg.name}: {cfg.n_layers} layers, {out['params_b']:.2f}B "
+        f"params ({out['active_params_b']:.2f}B active), "
+        f"{out['weights_gb']:.1f} GB")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        1, FAM_S + FAM_STEPS))).cuda()
+    out["grouped_dispatch"] = ds_grouped(params, cfg, rng)
+    log(f"  (f) grouped dispatch: {json.dumps(out['grouped_dispatch'])}")
+    free_cuda()
+    S = shapes["prefill_32k"].seq_len
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, S))).cuda()
+    with torch.no_grad():
+        (logits, cache), ms = timed(lambda: transformer.prefill(params, tok,
+                                                                cfg))
+    if not torch.isfinite(logits).all():
+        raise AssertionError("prefill_32k: non-finite logits")
+    out["prefill_32k"] = dict(batch=1, seq=S, ms=ms, cache_gb=cache_gb(cache))
+    del cache, logits
+    free_cuda()
+    log(f"  (a) prefill_32k: {json.dumps(out['prefill_32k'])}")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    for key, shape, batch in (("decode_32k", shapes["decode_32k"], 32),
+                              ("long_500k", shapes["long_500k"], 1)):
+        cache = seeded_decode_cache(cfg, batch, shape.seq_len, gen)
+        out[key] = dict(batch=batch, seq=shape.seq_len,
+                        cache_gb=cache_gb(cache),
+                        ms=decode_timing(params, cfg, cache, rng, key))
+        log(f"  ({'b' if key == 'decode_32k' else 'c'}) {key}: "
+            f"{json.dumps(out[key])}")
+        del cache
+        free_cuda()
+    out["consistency_bf16"], _ = noise_gated_consistency(
+        params, cfg, tokens, FAM_S, FAM_STEPS)
+    log(f"  (d) bf16 consistency: "
+        f"{json.dumps(out['consistency_bf16'])}")
+    del params
+    free_cuda()
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = transformer.init_params(c32, seed=args.seed, device="cuda")
+    out["consistency"], _ = noise_gated_consistency(params, c32, tokens,
+                                                    FAM_S, FAM_STEPS)
+    log(f"  (d) float32 consistency: {json.dumps(out['consistency'])}")
+    out["deferred"] = ds_deferred(params, c32, tokens, FAM_S)
+    log(f"  (e) float32 deferred writes: {json.dumps(out['deferred'])}")
+    del params
+    free_cuda()
+    out["train"] = ds_train(cfg, rng, args.seed)
+    log(f"  (g) training step: {json.dumps(out['train'])}")
+    out["f32_depth2"] = lm_f32_check(cfg, rng, args.seed, FAM_S, FAM_STEPS)
+    log(f"  float32 depth 2: {json.dumps(out['f32_depth2'])}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def family_mixtral(args, rng):
+    """mixtral-8x7b at full width, 16 of 32 layers: prefill at S = 8,192
+    (twice the window) into a ring, 16 decode steps on it (the ring stays
+    ``window`` slots) held against one forward over the whole sequence;
+    decode_32k at B = 64 on a seeded ring; the float32 depth-2 check at
+    the same lengths."""
+    from repro_torch.configs import mixtral_8x7b
+    from repro_torch.configs.base import LM_SHAPES
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(mixtral_8x7b.CONFIG, n_layers=MIXTRAL_LAYERS)
+    W = cfg.sliding_window
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(cfg, seed=args.seed, device="cuda")
+    out = dict(layers=cfg.n_layers, of_layers=mixtral_8x7b.CONFIG.n_layers,
+               params_b=cfg.param_count() / 1e9,
+               weights_gb=tree_gb(params))
+    log(f"  {cfg.name}: {cfg.n_layers} of {out['of_layers']} layers, "
+        f"{out['params_b']:.2f}B params, {out['weights_gb']:.1f} GB")
+    S, steps = 2 * W, 16
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        1, S + steps))).cuda()
+    with torch.no_grad():  # at the published capacity factor
+        (logits, cache), ms = timed(lambda: transformer.prefill(
+            params, tokens[:, :S], cfg, max_len=S + steps))
+    if not torch.isfinite(logits).all():
+        raise AssertionError("mixtral prefill: non-finite logits")
+    out["prefill"] = dict(batch=1, seq=S, ms=ms, cache_gb=cache_gb(cache))
+    del cache, logits
+    free_cuda()
+    out["consistency"], cache = noise_gated_consistency(params, cfg, tokens,
+                                                        S, steps)
+    if not cache.ring or cache.k.shape[2] != W or cache.pos != S + steps:
+        raise AssertionError(f"mixtral ring: {tuple(cache.k.shape)}, "
+                             f"ring={cache.ring}, pos={cache.pos}")
+    out["consistency"]["ring_slots"] = int(cache.k.shape[2])
+    del cache
+    free_cuda()
+    log(f"  ring prefill {S} + {steps} decode steps: "
+        f"{json.dumps(out['consistency'])}")
+    shape = next(s for s in LM_SHAPES if s.name == "decode_32k")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    cache = seeded_decode_cache(cfg, 64, shape.seq_len, gen)
+    out["decode_32k"] = dict(batch=64, seq=shape.seq_len,
+                             ring_slots=int(cache.k.shape[2]),
+                             cache_gb=cache_gb(cache),
+                             ms=decode_timing(params, cfg, cache, rng,
+                                              "decode_32k"))
+    log(f"  decode_32k on the ring: {json.dumps(out['decode_32k'])}")
+    del cache, params
+    free_cuda()
+    out["f32_depth2"] = lm_f32_check(cfg, rng, args.seed, S, steps)
+    log(f"  float32 depth 2: {json.dumps(out['f32_depth2'])}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def family_dense(args, rng, module, n_layers=None):
+    """A dense GQA model (stablelm-12b, codeqwen1.5-7b at full size;
+    qwen1.5-110b cut in depth): prefill at S = 2,048, B = 1, 8 decode
+    steps, the consistency check; the float32 depth-2 check."""
+    from repro_torch.models import transformer
+
+    cfg = module.CONFIG
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(cfg, seed=args.seed, device="cuda")
+    out = dict(layers=cfg.n_layers, of_layers=module.CONFIG.n_layers,
+               params_b=cfg.param_count() / 1e9,
+               weights_gb=tree_gb(params))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        1, FAM_S + FAM_STEPS))).cuda()
+    out["consistency"], _ = noise_gated_consistency(params, cfg, tokens,
+                                                    FAM_S, FAM_STEPS)
+    del params
+    free_cuda()
+    out["f32_depth2"] = lm_f32_check(cfg, rng, args.seed, FAM_S, FAM_STEPS)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {cfg.name}: {cfg.n_layers} of {out['of_layers']} layers, "
+        f"{out['params_b']:.2f}B params, {out['weights_gb']:.1f} GB; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def gnn_batch(shape, cfg, rng):
+    """One batch of a GNN shape on the card, features in bf16: a seeded
+    random graph (full), 128 graphs of 30 nodes (batched), or a fanout
+    sample of 1,024 seeds from a random graph at Reddit's size (sampled;
+    its node mask kept).  Returns (batch, sizes)."""
+    from repro_torch.data import graph_sampler
+
+    info = {}
+    if shape.kind == "sampled":
+        t0 = time.time()
+        g = graph_sampler.random_graph(rng, shape.n_nodes,
+                                       round(shape.n_edges / shape.n_nodes),
+                                       shape.d_feat)
+        info.update(graph_edges=int(g.indptr[-1]), graph_s=time.time() - t0)
+        seeds = rng.choice(shape.n_nodes, shape.batch_nodes, replace=False)
+        t0 = time.time()
+        sub = graph_sampler.fanout_sample(g, seeds, shape.fanout, rng,
+                                          cfg.edge_feat_dim)
+        info["sample_s"] = time.time() - t0
+        del g
+        arrays = {k: sub[k] for k in ("node_feats", "edge_feats", "senders",
+                                      "receivers", "node_mask")}
+    else:
+        lead = (shape.batch,) if shape.kind == "batched" else ()
+        n, E = shape.n_nodes, shape.n_edges
+        arrays = {
+            "node_feats": rng.normal(size=lead + (n, shape.d_feat)),
+            "edge_feats": rng.normal(size=lead + (E, cfg.edge_feat_dim)),
+            "senders": rng.integers(0, n, lead + (E,)).astype(np.int32),
+            "receivers": rng.integers(0, n, lead + (E,)).astype(np.int32)}
+    arrays["targets"] = rng.normal(
+        size=arrays["node_feats"].shape[:-1] + (cfg.out_dim,))
+    batch = {}
+    for k, a in arrays.items():
+        t = torch.from_numpy(np.ascontiguousarray(a)).cuda()
+        batch[k] = t.to(torch.bfloat16 if k.endswith("_feats") else
+                        torch.float32) if t.is_floating_point() else t
+    info.update(nodes=int(np.prod(arrays["node_feats"].shape[:-1])),
+                edges=int(np.prod(arrays["senders"].shape)))
+    return batch, info
+
+
+def family_gnn(args, rng):
+    """meshgraphnet at its published size (15 layers, d_hidden 128, bf16):
+    3 ``Trainer`` + ``adamw`` steps on one repeated batch of each shape but
+    ogb_products (its remat carry alone is ~247 GB: ROADMAP item 13)."""
+    from repro_torch.configs import meshgraphnet
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.models import gnn
+    from repro_torch.training import Trainer, TrainerConfig, adamw
+
+    out = {}
+    for shape in GNN_SHAPES:
+        if shape.name == "ogb_products":
+            continue
+        cfg = dataclasses.replace(meshgraphnet.CONFIG,
+                                  node_feat_dim=shape.d_feat)
+        torch.cuda.reset_peak_memory_stats()
+        batch, info = gnn_batch(shape, cfg, rng)
+        params = gnn.init_params(cfg, seed=args.seed, device="cuda")
+        trainer = Trainer(lambda p, b, cfg=cfg: gnn.gnn_loss(p, b, cfg),
+                          adamw(lr=GR_TRAIN_LR), params,
+                          TrainerConfig(n_steps=GNN_STEPS))
+        losses, step_ms = [], []
+        for _ in range(GNN_STEPS):
+            loss, ms = timed(lambda: trainer.train_one(batch))
+            losses.append(loss)
+            step_ms.append(ms)
+        out[shape.name] = dict(info, kind=shape.kind, d_feat=shape.d_feat,
+                               losses=losses, step_ms=step_ms,
+                               peak_gb=torch.cuda.max_memory_allocated()
+                               / 1e9)
+        log(f"  meshgraphnet {shape.name}: {json.dumps(out[shape.name])}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"meshgraphnet {shape.name}: losses {losses}")
+        del trainer, params, batch
+        free_cuda()
+    out["peak_gb"] = max(v["peak_gb"] for v in out.values())
+    return out
+
+
+def phase_families(args):
+    """Phase 13: every other model family on the card at full width (the
+    cuts in ``PERF.md`` §4); one ``{"families": ...}`` line.  Each model is
+    freed before the next; no kernel of the repository is on this path."""
+    from repro_torch.configs import codeqwen1_5_7b, qwen1_5_110b, stablelm_12b
+
+    rng = np.random.default_rng([args.seed, 13])  # earlier phases unmoved
+    out = {}
+    for name, fn in (
+            ("deepseek-v2-lite-16b", lambda: family_deepseek(args, rng)),
+            ("mixtral-8x7b", lambda: family_mixtral(args, rng)),
+            ("stablelm-12b", lambda: family_dense(args, rng, stablelm_12b)),
+            ("codeqwen1.5-7b", lambda: family_dense(args, rng,
+                                                    codeqwen1_5_7b)),
+            ("qwen1.5-110b", lambda: family_dense(args, rng, qwen1_5_110b,
+                                                  QWEN110_LAYERS)),
+            ("meshgraphnet", lambda: family_gnn(args, rng))):
+        t0 = time.time()
+        out[name] = fn()
+        out[name]["seconds"] = time.time() - t0
+        free_cuda()
+    peak = max(v["peak_gb"] for v in out.values())
+    if peak >= 80.0:
+        raise AssertionError(f"phase 13 peaked at {peak:.1f} GB")
+    return out
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -3810,9 +4473,19 @@ def main() -> int:
     launches["vntk_stacked_topk"] += scenario_topk
     print(json.dumps({"scenarios": scenarios}), flush=True)
     log(f"  phase 12 took {time.time() - t0:.1f}s")
+    free_cuda()
+    log(f"phase 13: the other model families at full width ("
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
+    t0 = time.time()
+    families = phase_families(args)
+    families["seconds"] = time.time() - t0
+    peaks.append(max(v["peak_gb"] for v in families.values()
+                     if isinstance(v, dict)) * 1e9)
+    print(json.dumps({"families": families}), flush=True)
+    log(f"  phase 13 took {families['seconds']:.1f}s")
 
     peak = max(peaks)
-    log(f"phase 13: report ({time.time() - t_start:.1f}s total; peak device "
+    log(f"phase 14: report ({time.time() - t_start:.1f}s total; peak device "
         f"memory {peak / 1e9:.1f} GB)")
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",

@@ -1,13 +1,11 @@
-"""Transformer, recsys and RQ-VAE config dataclasses, and the registry's
-bundle — a copy of ``repro.configs.base``.
+"""Config dataclasses of every architecture family, their input-shape
+specs, and the registry's bundle — a copy of ``repro.configs.base``.
 
 Field for field the same as the reference, so a config built for one package
 builds the other (``TransformerConfig(**dataclasses.asdict(cfg))``,
-``RecsysConfig(**dataclasses.asdict(cfg))``).  The
-port's transformer implements the GQA path; it raises on the fields of the
-paths still to be ported (MLA, MoE, sliding window, deferred cache writes).
-Fields that only steer JAX sharding or XLA lowering are kept for that
-one-to-one mapping and are not read here.
+``GNNConfig(**...)``, ``RecsysConfig(**...)``).  Fields that only steer JAX
+sharding or XLA lowering (``sp_axes``, ``layer_unroll``, ``decode_split_k``,
+...) are kept for that one-to-one mapping and are not read here.
 """
 from __future__ import annotations
 
@@ -26,6 +24,9 @@ class MoEConfig:
     d_ff_dense: int = 0  # width of those dense FFNs
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
+    # GShard-style dispatch groups PER SEQUENCE: 0 = one flat dispatch
+    # over all tokens; g >= 1 splits (B, S) into B*g groups of S/g tokens,
+    # each with its own capacity and position cumsum.
     dispatch_groups: int = 0
 
 
@@ -41,7 +42,7 @@ class TransformerConfig:
     head_dim: int = 0  # 0 => d_model // n_heads
     qkv_bias: bool = False
     attention: str = "gqa"  # "gqa" (covers MHA/MQA/SWA) | "mla"
-    sliding_window: Optional[int] = None
+    sliding_window: Optional[int] = None  # SWA window (Mixtral: 4096)
     # --- MLA (DeepSeek-V2) ---
     kv_lora_rank: int = 0
     qk_nope_head_dim: int = 128
@@ -69,16 +70,109 @@ class TransformerConfig:
     decode_split_k: bool = False
     serve_replicate_weights: bool = False
 
+    def __post_init__(self):
+        # ``dataclasses.asdict`` of a reference config nests ``moe`` as a dict
+        if isinstance(self.moe, dict):
+            object.__setattr__(self, "moe", MoEConfig(**self.moe))
+
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
     def param_count(self) -> int:
-        """Approximate parameter count of the GQA path (embeddings + layers)."""
+        """Approximate parameter count (embeddings + layers)."""
         D, V, L = self.d_model, self.vocab_size, self.n_layers
         emb = V * D * (1 if self.tie_embeddings else 2)
-        hd = self.resolved_head_dim()
-        attn = D * hd * (self.n_heads + 2 * self.n_kv_heads) + self.n_heads * hd * D
-        return emb + L * (attn + 3 * D * self.d_ff)
+        if self.attention == "mla":
+            hd = self.qk_nope_head_dim + self.qk_rope_head_dim
+            attn = (
+                D * self.n_heads * hd  # q proj
+                + D * (self.kv_lora_rank + self.qk_rope_head_dim)  # kv down
+                + self.kv_lora_rank * self.n_heads
+                * (self.qk_nope_head_dim + self.v_head_dim)  # kv up
+                + self.n_heads * self.v_head_dim * D  # o proj
+            )
+        else:
+            hd = self.resolved_head_dim()
+            attn = (D * hd * (self.n_heads + 2 * self.n_kv_heads)
+                    + self.n_heads * hd * D)
+        if self.moe is None:
+            return emb + L * (attn + 3 * D * self.d_ff)
+        m = self.moe
+        moe_ffn = 3 * D * m.d_expert * m.n_experts + D * m.n_experts
+        shared = (3 * D * (m.d_shared or m.n_shared * m.d_expert)
+                  if m.n_shared else 0)
+        dense = 3 * D * (m.d_ff_dense or self.d_ff)
+        return emb + (m.first_dense_layers * (attn + dense)
+                      + (L - m.first_dense_layers) * (attn + moe_ffn + shared))
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: routed top-k only)."""
+        if self.moe is None:
+            return self.param_count()
+        D, L, m = self.d_model, self.n_layers, self.moe
+        moe_total = 3 * D * m.d_expert * m.n_experts
+        moe_active = 3 * D * m.d_expert * m.top_k
+        return self.param_count() - (L - m.first_dense_layers) * (
+            moe_total - moe_active)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMShape:
+    name: str
+    kind: str  # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+LM_SHAPES = (
+    LMShape("train_4k", "train", 4_096, 256),
+    LMShape("prefill_32k", "prefill", 32_768, 32),
+    LMShape("decode_32k", "decode", 32_768, 128),
+    LMShape("long_500k", "decode", 524_288, 1),
+)
+
+
+# --------------------------------------------------------------------------
+# GNN family
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_layers: int = 15
+    d_hidden: int = 128
+    mlp_layers: int = 2
+    aggregator: str = "sum"
+    node_feat_dim: int = 16
+    edge_feat_dim: int = 8
+    out_dim: int = 3
+    dtype: str = "bfloat16"
+    remat: bool = True
+    layer_unroll: int = 1  # XLA lowering knob of the reference; not read here
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphShape:
+    name: str
+    kind: str  # "full" | "sampled" | "batched"
+    n_nodes: int
+    n_edges: int
+    d_feat: int
+    batch: int = 1
+    batch_nodes: int = 0
+    fanout: tuple = ()
+
+
+GNN_SHAPES = (
+    GraphShape("full_graph_sm", "full", 2_708, 10_556, 1_433),
+    GraphShape(
+        "minibatch_lg", "sampled", 232_965, 114_615_892, 602,
+        batch_nodes=1_024, fanout=(15, 10),
+    ),
+    GraphShape("ogb_products", "full", 2_449_029, 61_859_140, 100),
+    GraphShape("molecule", "batched", 30, 64, 16, batch=128),
+)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Move the reference package's parameters, tries, stores and §5.2 baseline
-tables into the port.
+"""Move the reference package's parameters (transformer, MeshGraphNet,
+recsys, RQ-VAE), tries, stores and §5.2 baseline tables into the port.
 
 The helpers take host arrays, never JAX objects: the caller converts with
 ``jax.tree.map(np.asarray, params)`` (or ``np.asarray`` per field), so the
@@ -11,14 +11,16 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import RecsysConfig, TransformerConfig
+from repro_torch.configs.base import (GNNConfig, RecsysConfig,
+                                      TransformerConfig)
 from repro_torch.constraints.store import _LEAF_FIELDS, ConstraintStore
 from repro_torch.core.compressed_slab import CompressedSlab
 from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.decoding.backends import HashBitmapBackend, PPVBackend
-from repro_torch.models.transformer import check_supported, torch_dtype
+from repro_torch.models.transformer import torch_dtype
 
-__all__ = ["params_from_jax", "recsys_params_from_jax", "rqvae_params_from_jax",
+__all__ = ["params_from_jax", "gnn_params_from_jax", "recsys_params_from_jax",
+           "rqvae_params_from_jax",
            "transition_matrix_from_numpy", "store_from_numpy",
            "slab_from_numpy", "ppv_backend_from_numpy",
            "hash_bitmap_backend_from_numpy"]
@@ -32,24 +34,57 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.tensor(a).to(device=device, dtype=dtype)
 
 
+def _unstack(tree, i):
+    """Layer ``i`` of a tree whose leaves are stacked on axis 0."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
 def params_from_jax(params_np, cfg: TransformerConfig, device=None):
-    """The reference's GQA parameter pytree (numpy leaves, layers stacked on
-    axis 0 under ``dense_layers``) as the port's parameter dict."""
-    check_supported(cfg)
+    """The reference's transformer parameter pytree (numpy leaves, layers
+    stacked on axis 0 under ``dense_layers`` and then ``moe_layers``) as
+    the port's parameter dict: one per-layer list, dense layers first.
+    Every leaf takes the config's dtype except the MoE router, which is
+    float32 in both packages."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
 
-    def conv(tree, i=None):
+    def conv(tree, key=None):
         if isinstance(tree, dict):
-            return {k: conv(v, i) for k, v in tree.items()}
-        return _tensor(tree if i is None else np.asarray(tree)[i], dtype, dev)
+            return {k: conv(v, k) for k, v in tree.items()}
+        return _tensor(tree, torch.float32 if key == "router" else dtype, dev)
 
-    stacked = params_np["dense_layers"]
     out = {"emb": conv(params_np["emb"]),
-           "final_norm": conv(params_np["final_norm"]),
-           "layers": [conv(stacked, i) for i in range(cfg.n_layers)]}
+           "final_norm": conv(params_np["final_norm"]), "layers": []}
+    for group in ("dense_layers", "moe_layers"):
+        if group in params_np:
+            stacked = params_np[group]
+            n = len(np.asarray(params_np[group]["ln_attn"]["scale"]))
+            out["layers"] += [conv(_unstack(stacked, i)) for i in range(n)]
+    if len(out["layers"]) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {len(out['layers'])} layers in the "
+                         f"tree, the config has {cfg.n_layers}")
     if "unemb" in params_np:
         out["unemb"] = conv(params_np["unemb"])
+    return out
+
+
+def gnn_params_from_jax(params_np, cfg: GNNConfig, device=None):
+    """The reference's MeshGraphNet pytree (numpy leaves; the processor's
+    layers stacked on axis 0) as the port's dict, whose ``processor`` is a
+    list of per-layer dicts; every leaf in the config's dtype."""
+    dev = resolve_device(device)
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor(tree, dtype, dev)
+
+    out = {k: conv(v) for k, v in params_np.items() if k != "processor"}
+    out["processor"] = [conv(_unstack(params_np["processor"], i))
+                        for i in range(cfg.n_layers)]
     return out
 
 

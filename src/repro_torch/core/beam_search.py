@@ -17,7 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core.vntk import NEG_INF
+from repro_torch.core.vntk import NEG_INF, top_m
 from repro_torch.decoding.policy import as_policy
 
 __all__ = ["BeamState", "beam_search", "recall_at_k", "top_m"]
@@ -43,12 +43,6 @@ def _init_state(batch: int, beams: int, length: int, device) -> BeamState:
         scores=scores,
         nodes=torch.ones((batch, beams), dtype=torch.int32, device=device),
     )
-
-
-def top_m(x: torch.Tensor, m: int):
-    """Top ``m`` along the last axis, ties to the lower index (lax.top_k)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :m], idx[..., :m]
 
 
 def beam_search(

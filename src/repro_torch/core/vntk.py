@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "LANE", "topk_lane", "candidate_width",
+__all__ = ["NEG_INF", "LANE", "topk_lane", "candidate_width", "top_m",
            "vntk_reference_scatter", "vntk_topk_reference",
            "vntk_stacked_reference_scatter", "vntk_stacked_topk_reference",
            "vntk_compressed_reference", "vntk_stacked_compressed_reference",
@@ -36,6 +36,16 @@ def topk_lane() -> int:
 def candidate_width(beams: int, vocab_size: int, lane: int = LANE) -> int:
     """Per-beam candidate count ``C = min(round_up(M, lane), V)`` (§8)."""
     return max(1, min(-(-int(beams) // lane) * lane, int(vocab_size)))
+
+
+def top_m(x: torch.Tensor, m: int):
+    """Top ``m`` along the last axis, ties to the lower index (lax.top_k).
+
+    ``torch.topk`` promises no tie order, so this is a stable descending
+    sort; beam search and the MoE router both select through it.
+    """
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :m], idx[..., :m]
 
 
 def _rows(nodes, row_pointers, constraint_ids=None):

@@ -1,13 +1,13 @@
 """Training launcher (``repro.launch.train``): trains the reduced (smoke)
-variant of an architecture on synthetic data with the fault-tolerant
+variant of any architecture on synthetic data with the fault-tolerant
 trainer.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch static-gr \\
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \\
         --steps 30 --ckpt-dir build/ckpt [--device cpu]
 
-The port takes the ``gr`` (static-gr) and ``recsys`` (wide-deep, mind,
-dlrm-mlperf, fm) families; an architecture of another family raises
-(ROADMAP.md item 15).  Runs on the card unless ``--device`` names another.
+Every family of the registry: ``lm`` and ``gr`` (``lm_loss``, the router's
+aux loss included), ``recsys`` and ``gnn`` (batched small graphs).  Runs on
+the card unless ``--device`` names another.
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.configs import get_bundle, smoke_config
 from repro_torch.data.loader import ShardedBatcher
-from repro_torch.models import recsys, transformer
+from repro_torch.models import gnn, recsys, transformer
 from repro_torch.training.optimizer import adamw
 from repro_torch.training.trainer import Trainer, TrainerConfig
 
@@ -30,10 +30,10 @@ def synth_batches(arch, cfg, global_batch, seed=0):
     rng = np.random.default_rng(seed)
     fam = get_bundle(arch).family
     n = global_batch * 8
-    if fam == "gr":
+    if fam in ("lm", "gr"):
         data = {"tokens": rng.integers(0, cfg.vocab_size, (n, 33)).astype(
             np.int32)}
-    else:
+    elif fam == "recsys":
         data = {
             "sparse": np.stack(
                 [rng.integers(0, v, (n, cfg.multi_hot))
@@ -44,6 +44,18 @@ def synth_batches(arch, cfg, global_batch, seed=0):
             "target": rng.integers(0, 40, (n,)).astype(np.int32),
             "label": rng.integers(0, 2, (n,)).astype(np.float32),
         }
+    else:  # gnn: batched small graphs
+        N, E = 24, 48
+        data = {
+            "node_feats": rng.normal(size=(n, N, cfg.node_feat_dim)).astype(
+                np.float32),
+            "edge_feats": rng.normal(size=(n, E, cfg.edge_feat_dim)).astype(
+                np.float32),
+            "senders": rng.integers(0, N, (n, E)).astype(np.int32),
+            "receivers": rng.integers(0, N, (n, E)).astype(np.int32),
+            "targets": rng.normal(size=(n, N, cfg.out_dim)).astype(
+                np.float32),
+        }
     return ShardedBatcher(data, global_batch, seed=seed)
 
 
@@ -53,12 +65,15 @@ def build(arch: str, device=None):
     fam = get_bundle(arch).family
     cfg = smoke_config(arch)
     dev = resolve_device(device)
-    if fam == "gr":
+    if fam in ("lm", "gr"):
         params = transformer.init_params(cfg, seed=0, device=dev)
         return cfg, params, lambda p, b: transformer.lm_loss(p, b["tokens"],
                                                              cfg)
-    params = recsys.init_params(cfg, seed=0, device=dev)
-    return cfg, params, lambda p, b: recsys.recsys_loss(p, b, cfg)
+    if fam == "recsys":
+        params = recsys.init_params(cfg, seed=0, device=dev)
+        return cfg, params, lambda p, b: recsys.recsys_loss(p, b, cfg)
+    params = gnn.init_params(cfg, seed=0, device=dev)
+    return cfg, params, lambda p, b: gnn.gnn_loss(p, b, cfg)
 
 
 def main(argv=None):

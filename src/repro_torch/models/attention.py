@@ -79,8 +79,10 @@ def chunked_causal_attention(
     reference's online log-sum-exp (unnormalized probabilities cast to the
     value dtype, divided by their float32 sum at the end).
 
-    Key chunks wholly after a query chunk are skipped: under the causal mask
-    they would add exactly nothing.
+    Key chunks wholly after a query chunk, or wholly before the window of
+    its first query, are skipped: masked for every query of the chunk, they
+    would add exactly nothing (a leading all-masked chunk's terms are
+    scaled by ``exp(NEG - m) = 0`` once a live key arrives).
     """
     B, Sq, H, Dh = q.shape
     Skv, KVH, Dv = v.shape[1], v.shape[2], v.shape[3]
@@ -103,6 +105,8 @@ def chunked_causal_attention(
         for k0 in range(0, Skv, ck):
             if k0 > q_offset + q0 + cq - 1:
                 break
+            if window is not None and k0 + ck - 1 <= q_offset + q0 - window:
+                continue
             s = _product_f32(q3, kt[:, :, k0:k0 + ck]).view(
                 B * KVH, G, cq, ck) * scale
             k_pos = torch.arange(k0, k0 + ck, device=q.device)

@@ -1,8 +1,13 @@
-"""KV cache of the GQA decode path (``repro.models.kvcache.KVCache``).
+"""KV caches: full, ring-buffered (sliding-window) and MLA latent
+(``repro.models.kvcache``).
 
-Layer-stacked ``(n_layers, B, S_slots, KVH, Dh)`` arrays, the absolute
-position of every slot (-1 = empty) and the next position to write.  The
-reference is functional; here the cache arrays are written in place (a
+Layer-stacked ``(n_layers, B, S_slots, ...)`` arrays, the absolute position
+of every slot (-1 = empty) and the next position to write.  A ring cache
+keeps only ``window`` slots and writes position ``pos`` at ``pos % window``;
+every slot remembers its absolute position for masking, so a sliding-window
+decode holds O(window) memory however long the sequence.  The MLA cache
+holds the compressed latents and the shared rotary keys instead of K/V.
+The reference is functional; here the cache arrays are written in place (a
 beam cache of the 3B model is ~4 GB), while ``slot_pos`` is small and is
 replaced.
 
@@ -15,16 +20,55 @@ import dataclasses
 
 import torch
 
-__all__ = ["KVCache", "advance_positions", "write_slot", "pages_for",
-           "init_page_pool", "scatter_pages", "gather_pages"]
+__all__ = ["KVCache", "MLACache", "init_kv_cache", "init_mla_cache",
+           "advance_positions", "write_slot", "pages_for", "init_page_pool",
+           "scatter_pages", "gather_pages"]
 
 
 @dataclasses.dataclass
 class KVCache:
     k: torch.Tensor  # (L, B, S_slots, KVH, Dh)
-    v: torch.Tensor  # (L, B, S_slots, KVH, Dv)
+    v: torch.Tensor  # (L, B, S_slots, KVH, Dh)
     slot_pos: torch.Tensor  # (S_slots,) int32 absolute position per slot
     pos: int  # next position to write
+    ring: bool = False  # slots are a ring of the last S_slots positions
+
+
+@dataclasses.dataclass
+class MLACache:
+    c_kv: torch.Tensor  # (L, B, S, kv_lora) compressed latents
+    k_rope: torch.Tensor  # (L, B, S, rope_dim) shared decoupled keys
+    slot_pos: torch.Tensor  # (S,) int32
+    pos: int
+
+
+def init_kv_cache(n_layers, batch, max_len, n_kv_heads, head_dim, *,
+                  dtype=torch.bfloat16, device=None,
+                  window=None) -> KVCache:
+    """Empty cache of ``min(max_len, window)`` slots; a ring exactly when
+    the window is what bounds it (``slots == window``)."""
+    slots = min(max_len, window) if window else max_len
+    return KVCache(
+        k=torch.zeros((n_layers, batch, slots, n_kv_heads, head_dim),
+                      dtype=dtype, device=device),
+        v=torch.zeros((n_layers, batch, slots, n_kv_heads, head_dim),
+                      dtype=dtype, device=device),
+        slot_pos=torch.full((slots,), -1, dtype=torch.int32, device=device),
+        pos=0,
+        ring=window is not None and slots == window,
+    )
+
+
+def init_mla_cache(n_layers, batch, max_len, kv_lora_rank, rope_dim, *,
+                   dtype=torch.bfloat16, device=None) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((n_layers, batch, max_len, kv_lora_rank),
+                         dtype=dtype, device=device),
+        k_rope=torch.zeros((n_layers, batch, max_len, rope_dim), dtype=dtype,
+                           device=device),
+        slot_pos=torch.full((max_len,), -1, dtype=torch.int32, device=device),
+        pos=0,
+    )
 
 
 def write_slot(cache_arr: torch.Tensor, new: torch.Tensor, slot: int):
@@ -33,13 +77,15 @@ def write_slot(cache_arr: torch.Tensor, new: torch.Tensor, slot: int):
     return cache_arr
 
 
-def advance_positions(slot_pos: torch.Tensor, pos: int, n_slots: int):
-    """Mark the slot written at this step with its absolute position.
+def advance_positions(slot_pos: torch.Tensor, pos: int, n_slots: int,
+                      ring: bool = False):
+    """Mark the slot written at this step with its absolute position:
+    ``pos % n_slots`` on a ring, else ``min(pos, n_slots - 1)``.
 
     Returns ``(new slot_pos, slot)``; the slot is computed once here and
     handed to the attention write, so the two never disagree.
     """
-    slot = min(pos, n_slots - 1)
+    slot = pos % n_slots if ring else min(pos, n_slots - 1)
     new = slot_pos.clone()
     new[slot] = pos
     return new, slot

@@ -10,8 +10,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense_init", "dense", "mlp_init", "mlp", "rms_norm", "swiglu",
-           "rope_frequencies", "apply_rope"]
+__all__ = ["dense_init", "dense", "mlp_init", "mlp", "rms_norm_init",
+           "rms_norm", "swiglu_init", "swiglu", "rope_frequencies",
+           "apply_rope"]
 
 
 def _he(gen: torch.Generator, shape, dtype, device, fan_in=None):
@@ -53,11 +54,22 @@ def mlp(p, x: torch.Tensor, act=F.relu) -> torch.Tensor:
     return x
 
 
+def rms_norm_init(d: int, dtype=torch.bfloat16, device=None):
+    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+
+
 def rms_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
+                dtype=torch.bfloat16, device=None):
+    return {"w1": _he(gen, (d_model, d_ff), dtype, device),
+            "w3": _he(gen, (d_model, d_ff), dtype, device),
+            "w2": _he(gen, (d_ff, d_model), dtype, device)}
 
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:

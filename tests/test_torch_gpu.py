@@ -1062,3 +1062,92 @@ def test_one_trainer_step_on_the_card():
     assert not torch.equal(t.params["emb"], before)
     assert t.opt_state["m"]["emb"].dtype == torch.float32
     assert smoke_config("static-gr").n_layers == len(t.params["layers"])
+
+
+def _smoke_inputs(cfg, shape, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).normal(
+        size=shape).astype(np.float32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b"])
+def test_moe_ffn_on_the_card_matches_the_cpu(arch):
+    """The smoke MoE (float32, TF32 off) on the card against the same call
+    on the CPU: expert ids, positions and ``keep`` equal; outputs within
+    1e-5 of their largest magnitude (cuBLAS sums in another order), the
+    aux loss within 1e-6."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
+
+    _card()
+    cfg = smoke_config(arch)
+    m, D = cfg.moe, cfg.d_model
+    params = moe.moe_init(torch.Generator().manual_seed(0), D, m,
+                          torch.float32, "cpu")
+    x = _smoke_inputs(cfg, (2, 16, D))
+    want, aux_want = moe.moe_ffn(params, x, m)
+    on_card = _tree_to(params, "cuda", torch.float32)
+    got, aux = moe.moe_ffn(on_card, x.cuda(), m)
+    for a, b in zip(moe.route(params["router"], x.reshape(1, -1, D), m)[2:],
+                    moe.route(on_card["router"], x.cuda().reshape(1, -1, D),
+                              m)[2:]):
+        assert torch.equal(a, b.cpu())
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+    assert abs(float(aux) - float(aux_want)) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aggregator", ["sum", "mean"])
+def test_gnn_forward_on_the_card_matches_the_cpu(aggregator):
+    """MeshGraphNet's smoke config (float32) on the card against the CPU,
+    one graph and three batched: within 1e-5 of the largest output (the
+    card's ``index_add_`` adds a node's messages in the order its atomics
+    land)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import gnn
+
+    _card()
+    cfg = dataclasses.replace(smoke_config("meshgraphnet"),
+                              aggregator=aggregator)
+    params = gnn.init_params(cfg, seed=0, device="cpu")
+    on_card = _tree_to(params, "cuda", torch.float32)
+    rng = np.random.default_rng(0)
+    for lead in ((), (3,)):
+        N, E = 40, 120
+        args = (_smoke_inputs(cfg, lead + (N, cfg.node_feat_dim)),
+                _smoke_inputs(cfg, lead + (E, cfg.edge_feat_dim), seed=1),
+                torch.from_numpy(rng.integers(0, N, lead + (E,))),
+                torch.from_numpy(rng.integers(0, N, lead + (E,))))
+        want = gnn.forward(params, *args, cfg)
+        got = gnn.forward(on_card, *(a.cuda() for a in args), cfg)
+        assert got.shape == want.shape
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v2-lite-16b"])
+def test_moe_decode_step_is_deterministic_on_the_card(arch):
+    """A bf16 MoE decode step (mixtral on its ring, deepseek's absorbed MLA)
+    run twice from equal caches gives bit-equal logits: the dispatch
+    scatters to unique rows and the combine sums in a fixed order."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+
+    _card()
+    cfg = dataclasses.replace(smoke_config(arch), dtype="bfloat16")
+    params = transformer.init_params(cfg, seed=0, device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (8, 13), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    _, cache = transformer.prefill(params, tok[:, :12], cfg, max_len=16)
+    names = ("c_kv", "k_rope") if cfg.attention == "mla" else ("k", "v")
+    logits = [transformer.decode_step(
+        params, dataclasses.replace(cache, **{n: getattr(cache, n).clone()
+                                              for n in names}),
+        tok[:, 12:], cfg)[0] for _ in range(2)]
+    assert torch.isfinite(logits[0]).all()
+    assert torch.equal(logits[0], logits[1])

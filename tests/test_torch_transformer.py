@@ -99,13 +99,43 @@ def test_init_params_shapes_match_reference():
     assert torch.equal(again["emb"], got["emb"])  # seeded
 
 
-@pytest.mark.parametrize("kw", [dict(attention="mla"),
+@pytest.mark.parametrize("kw", [dict(attention="mla", kv_lora_rank=16,
+                                     qk_nope_head_dim=8, qk_rope_head_dim=4,
+                                     v_head_dim=8),
                                 dict(sliding_window=4),
                                 dict(defer_cache_write=True)])
-def test_unported_paths_raise(kw):
-    _, cfg = _configs(**kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        transformer.init_params(cfg, device="cpu")
+def test_unported_paths_raise(rng, kw):
+    """MLA, sliding-window and deferred-write configs now run and match
+    the reference (the name is kept from when the port refused them): prefill logits and two decode steps' logits (with the
+    deferred step's pending k/v against what an eager step writes)."""
+    jcfg, cfg = _configs(**kw)
+    jparams = jax_transformer.init_params(jcfg, jax.random.key(1))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                             device="cpu")
+    B, S = 2, 9
+    tokens = rng.integers(0, cfg.vocab_size, (B, S + 2))
+    j_logits, j_cache = jax_transformer.prefill(
+        jparams, jnp.asarray(tokens[:, :S]), jcfg, max_len=S + 3)
+    logits, cache = transformer.prefill(
+        params, torch.from_numpy(tokens[:, :S]), cfg, max_len=S + 3)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(j_logits), **TOL)
+    for t in range(S, S + 2):
+        nxt = tokens[:, t:t + 1]
+        j_out = jax_transformer.decode_step(jparams, j_cache, jnp.asarray(nxt),
+                                            jcfg)
+        out = transformer.decode_step(params, cache, torch.from_numpy(nxt),
+                                      cfg)
+        assert len(out) == len(j_out)
+        np.testing.assert_allclose(out[0].numpy(), np.asarray(j_out[0]),
+                                   **TOL)
+        if cfg.defer_cache_write:
+            for got, want in zip(out[2], j_out[2]):
+                np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                           **TOL)
+        j_cache, cache = j_out[1], out[1]
+        assert cache.pos == int(j_cache.pos)
+        np.testing.assert_array_equal(cache.slot_pos.numpy(),
+                                      np.asarray(j_cache.slot_pos))
 
 
 def _bf16_pair(x):
