@@ -340,7 +340,32 @@ Phases (any failure raises and the script exits non-zero):
               Prefill and decode ms by CUDA events, peak GB; one
               ``{"families": ...}`` line.  No kernel of the repository is
               on this path.
-14. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
+14. spmd    — SPMD serving over a ``torch.distributed`` process mesh
+              (DESIGN.md §6), after phase 13's tensors are released, with
+              phase 2's trie and store kept on the host since phase 8.
+              (a) A world of one (nccl) on the card, mesh (1, 1):
+              static-gr-3b at full depth through ``SpmdRetriever`` on the
+              five-slot store (B = 5, M = 70, ``--batches`` + 1 batches),
+              bit-equal to ``GenerativeRetriever`` on every batch, the
+              stacked topk kernel the only VNTK kernel, ``L - dense_d``
+              launches per retrieve (counters zeroed just before, read just
+              after); both retrieves' median ms by CUDA events; then
+              ``SpmdServingEngine`` over a 100,000-item registry of the five
+              slots draining mixed queues across a hot delta (0
+              specializations) and a 300,000-item cold swap (1), 100%
+              compliant.  (b) Two processes sharing the card in a gloo world
+              (CUDA tensors staged through pinned host memory): the parent
+              ``torch.save``s phase 2's trie under ``build/spmd``, each rank
+              loads it to ``cuda:0`` and builds static-gr-3b from the same
+              seed; (2, 1) replicated — each rank launches the topk kernel
+              on its half of a B = 2 batch, the all-gathered result bit-equal
+              to ``GenerativeRetriever`` on each half; (1, 2)
+              ``rows="model"`` with ``impl="plain"`` — each rank holds half
+              the padded edge slab, one all-reduce per sparse step, the
+              result bit-equal to the single-device plain policy.  Per-rank
+              median ms, edge bytes and ``CollectiveLog`` bytes; one
+              ``{"spmd": ...}`` line.
+15. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
               with a row per kernel function (a VNTK row with the ``path``
               its main-path levels took, ``warp`` or ``block``, for topk
               and mask alike, and phase 7's two ``block`` rows; for the bag,
@@ -4328,6 +4353,292 @@ def phase_families(args):
         raise AssertionError(f"phase 13 peaked at {peak:.1f} GB")
     return out
 
+# ---------------------------------------------------------------------------
+# phase 14: SPMD serving over a process mesh
+# ---------------------------------------------------------------------------
+SPMD_ITEMS, SPMD_GROWN = 100_000, 300_000  # (a): engine registry, cold swap
+SPMD_CHURN = 500  # (a): items in and out of the hot delta
+SPMD_B = 2  # (b): the single path's batch, one row per rank under (2, 1)
+
+
+def spmd_rank(rank: int, root: str, seed: int) -> None:
+    """Rank ``rank`` of phase 14(b)'s two-process gloo world on ``cuda:0``:
+    static-gr-3b from ``seed`` and the saved trie, ``SpmdRetriever`` under
+    (2, 1) replicated (the CUDA topk kernel on its half of the batch) and
+    (1, 2) ``rows="model"`` (``impl="plain"``, half the slab); first
+    results, launches, collective bytes, edge bytes and median ms go to
+    ``root``."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch.distributed as dist
+    from repro_torch.configs import static_gr
+    from repro_torch.core.transition_matrix import TransitionMatrix
+    from repro_torch.decoding import DecodePolicy
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import vntk as kv
+    from repro_torch.launch.mesh import make_subset_mesh
+    from repro_torch.models import transformer
+    from repro_torch.serving.spmd_engine import SpmdRetriever
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(f"{root}/store", 2),
+                            rank=rank, world_size=2)
+    try:
+        L, V, M = static_gr.SID_LENGTH, static_gr.SID_VOCAB, static_gr.BEAM_SIZE
+        tm = TransitionMatrix(**torch.load(f"{root}/trie.pt")).to("cuda")
+        cfg = static_gr.CONFIG
+        params = transformer.init_params(cfg, seed=seed, device="cuda")
+        hists = np.load(f"{root}/hists.npy")
+        out, stats = {}, {}
+        for (data, model), rows in (((2, 1), "replicated"),
+                                    ((1, 2), "model")):
+            mesh = make_subset_mesh(data, model)  # gloo groups
+            tag = f"{data}x{model}"
+            r = SpmdRetriever(
+                params, cfg, DecodePolicy.static(
+                    tm, impl="plain" if rows == "model" else None),
+                L, V, beam_size=M, mesh=mesh, rows=rows)
+            edges = r.policy.backends[-1].tm.edges
+            torch.cuda.synchronize()
+            kv.reset_launches()  # the retrieves of this mesh start here
+            with collectives.recording() as log:
+                beams, scores = r.retrieve(hists[0])
+            launches = {k: n for k, n in kv.LAUNCHES.items() if n}
+            lat = []
+            for hist in hists[1:]:
+                t0 = time.perf_counter()
+                r.retrieve(hist)  # host arrays: synchronized
+                lat.append((time.perf_counter() - t0) * 1e3)
+            out[f"{tag}_beams"], out[f"{tag}_scores"] = beams, scores
+            stats[tag] = dict(
+                rows=rows, launches=launches, collectives=log.summary(),
+                edges_rows=int(edges.shape[0]),
+                edges_bytes=int(edges.untyped_storage().nbytes()),
+                median_ms=float(np.median(lat)))
+            del r, edges
+        np.savez(f"{root}/rank{rank}.npz", **out)
+        with open(f"{root}/rank{rank}.json", "w") as f:
+            json.dump(stats, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_engine(params, cfg, mesh, rng, n_sparse):
+    """(a)'s engine: ``SpmdServingEngine`` over a registry of SPMD_ITEMS
+    items (the five slots) draining mixed queues across a hot delta and a
+    cold swap; returns its counts and the stacked topk launches."""
+    from repro_torch.configs import static_gr
+    from repro_torch.constraints import CatalogDelta, ItemCatalog
+    from repro_torch.core.trie import sorted_unique_sids
+    from repro_torch.decoding import DecodePolicy
+    from repro_torch.kernels import vntk as kv
+    from repro_torch.observability import compile_events
+    from repro_torch.serving import RequestQueue
+    from repro_torch.serving.spmd_engine import (
+        SpmdRetriever,
+        SpmdServingEngine,
+    )
+
+    L, V, M = static_gr.SID_LENGTH, static_gr.SID_VOCAB, static_gr.BEAM_SIZE
+    S, B = static_gr.HISTORY_LEN, len(SLOTS)
+
+    def catalog(n):
+        s = sorted_unique_sids(rng.integers(0, V, (n, L)))
+        return ItemCatalog(sids=s, age_days=rng.uniform(0.0, 90.0, len(s)),
+                           category=rng.integers(0, 8, len(s)))
+
+    reg = registry()
+    cat = catalog(SPMD_ITEMS)
+    store = reg.build(cat)
+    eng = SpmdServingEngine(
+        SpmdRetriever(params, cfg, DecodePolicy.stacked(store), L, V,
+                      beam_size=M, mesh=mesh), registry=reg, slots=B,
+        prompt_width=S)
+    sets, results, specs, launches = {}, [], [], 0
+    for step in ("first", "hot", "cold"):
+        if step == "hot":
+            rm = cat.sids[rng.choice(len(cat.sids), SPMD_CHURN,
+                                     replace=False)]
+            seen = set(map(tuple, cat.sids.tolist()))
+            add = catalog(SPMD_CHURN)
+            add = add.select(np.array([t not in seen
+                                       for t in map(tuple, add.sids.tolist())]))
+            reg.swap_delta(CatalogDelta(added=add, removed_sids=rm))
+        elif step == "cold":
+            reg.swap(catalog(SPMD_GROWN))
+        sets[reg.version] = slot_sets(reg)
+        q = RequestQueue()
+        rids = [q.submit(rng.integers(0, cfg.vocab_size, S), n_tokens=L,
+                         constraint_id=i % B) for i in range(2 * B)]
+        kv.reset_launches()  # this serve's run starts here
+        c0 = compile_events()
+        res = eng.serve(q)
+        specs.append(compile_events() - c0)
+        rose = {k: n for k, n in kv.LAUNCHES.items() if n}  # ... ends here
+        if set(rose) != {"vntk_stacked_topk"} or rose[
+                "vntk_stacked_topk"] != 2 * n_sparse:
+            raise AssertionError(f"(a) engine {step}: launches {rose}")
+        launches += rose["vntk_stacked_topk"]
+        if len(q) or any("sids" not in res[r] for r in rids):
+            raise AssertionError(f"(a) engine {step}: dropped requests")
+        results += [res[r] for r in rids]
+    rows = check_versions(results, sets)
+    unexpected = eng.metrics.counter("serving_recompiles_total").value(
+        expected="false")
+    if specs != [1, 0, 1] or eng.cold_swaps != 1 or unexpected:
+        raise AssertionError(f"(a) engine: specializations {specs}, "
+                             f"{eng.cold_swaps} cold swaps, {unexpected} "
+                             "unexpected")
+    log(f"  (a) SpmdServingEngine: {SPMD_ITEMS} items, a +/-{SPMD_CHURN} hot "
+        f"delta, then a {SPMD_GROWN}-item cold swap; specializations per "
+        f"serve {specs}, rows per version {rows}, 100% compliant")
+    return dict(specializations=specs, cold_swaps=eng.cold_swaps,
+                rows_per_version=rows), launches
+
+
+def phase_spmd(args, kept):
+    """(a) a world of one (nccl) on the card: ``SpmdRetriever`` on the
+    five-slot store bit-equal to ``GenerativeRetriever`` with the stacked
+    topk kernel the only VNTK kernel, and the engine across a hot and a
+    cold swap; (b) two processes sharing the card in a gloo world."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import static_gr
+    from repro_torch.core.vntk import candidate_width
+    from repro_torch.decoding import DecodePolicy
+    from repro_torch.kernels import vntk as kv
+    from repro_torch.launch.mesh import make_debug_mesh, world
+    from repro_torch.models import transformer
+    from repro_torch.serving import GenerativeRetriever
+    from repro_torch.serving.spmd_engine import SpmdRetriever
+
+    L, V, M = static_gr.SID_LENGTH, static_gr.SID_VOCAB, static_gr.BEAM_SIZE
+    S = static_gr.HISTORY_LEN
+    rng = np.random.default_rng([args.seed, 14])  # earlier phases unmoved
+    cfg = static_gr.CONFIG
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(cfg, seed=args.seed, device="cuda")
+    store = kept["store"].to("cuda")
+    B = store.num_sets
+    cids = np.arange(B, dtype=np.int32)
+    hists = [rng.integers(0, cfg.vocab_size, (B, S))
+             for _ in range(args.batches + 1)]
+    n_sparse = L - store.dense_d
+    out = {}
+    with world("cuda"):
+        mesh = make_debug_mesh(model=1)
+        pol = DecodePolicy.stacked(store)
+        spmd = SpmdRetriever(params, cfg, pol, L, V, beam_size=M, mesh=mesh)
+        single = GenerativeRetriever(params, cfg, pol, L, V, beam_size=M)
+        torch.cuda.synchronize()
+        kv.reset_launches()  # the SPMD retrieves start here
+        got = [spmd.retrieve(h, cids) for h in hists]
+        launches = {k: n for k, n in kv.LAUNCHES.items() if n}  # ... end
+        if launches != {"vntk_stacked_topk": n_sparse * len(hists)}:
+            raise AssertionError(f"(a) SpmdRetriever launches {launches}")
+        for i, h in enumerate(hists):
+            want = single.retrieve(h, cids)
+            if not (np.array_equal(got[i][0], want[0])
+                    and np.array_equal(got[i][1], want[1])):
+                raise AssertionError(f"(a) batch {i}: SpmdRetriever differs "
+                                     "from GenerativeRetriever")
+            for k in range(B):
+                check_compliance(f"(a) batch {i} row {k}",
+                                 kept["slot_sids"][k], got[i][0][k:k + 1],
+                                 got[i][1][k:k + 1])
+        ms = {name: event_ms(lambda: r.retrieve(hists[1], cids),
+                             reps=args.batches)
+              for name, r in (("spmd", spmd), ("single", single))}
+        spmd_launches = launches["vntk_stacked_topk"]
+        log(f"  (a) world of one (nccl), mesh (1, 1): SpmdRetriever bit-equal "
+            f"to GenerativeRetriever over {len(hists)} batches of B={B}, "
+            f"M={M}; vntk_stacked_topk the only VNTK kernel, {n_sparse} "
+            f"launches per retrieve; median retrieve {ms['spmd']:.2f} ms "
+            f"against {ms['single']:.2f} ms")
+        del spmd, single, got
+        out["a"], engine_launches = spmd_engine(params, cfg, mesh, rng,
+                                                n_sparse)
+        spmd_launches += engine_launches
+    out["a"].update(retrieve_ms=ms["spmd"], single_ms=ms["single"],
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del store, pol
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) two processes sharing the card, gloo over CUDA tensors
+    t0 = time.time()
+    root = os.path.join(HERE, "build", "spmd")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        tm = kept["tm"]
+        torch.save({f.name: getattr(tm, f.name)
+                    for f in dataclasses.fields(tm)}, f"{root}/trie.pt")
+        bh = np.stack([rng.integers(0, cfg.vocab_size, (SPMD_B, S))
+                       for _ in range(args.batches + 1)])
+        np.save(f"{root}/hists.npy", bh)
+        mp.spawn(spmd_rank, args=(root, args.seed), nprocs=2, join=True)
+        ranks = [dict(np.load(f"{root}/rank{r}.npz")) for r in range(2)]
+        stats = []
+        for r in range(2):
+            with open(f"{root}/rank{r}.json") as f:
+                stats.append(json.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tm = tm.to("cuda")
+    want = {
+        "2x1": [GenerativeRetriever(params, cfg, DecodePolicy.static(tm), L,
+                                    V, beam_size=M).retrieve(bh[0][i:i + 1])
+                for i in range(SPMD_B)],
+        "1x2": [GenerativeRetriever(
+            params, cfg, DecodePolicy.static(tm, impl="plain"), L, V,
+            beam_size=M).retrieve(bh[0])],
+    }
+    e_pad = -(-tm.edges.shape[0] // 2) * 2
+    nb, C = SPMD_B * M, candidate_width(M, V)
+    for tag, parts in want.items():
+        wb = np.concatenate([p[0] for p in parts])
+        ws = np.concatenate([p[1] for p in parts])
+        for r in range(2):
+            st = stats[r][tag]
+            if not (np.array_equal(ranks[r][f"{tag}_beams"], wb)
+                    and np.array_equal(ranks[r][f"{tag}_scores"], ws)):
+                raise AssertionError(f"(b) {tag} rank {r}: results differ "
+                                     "from GenerativeRetriever")
+            check_compliance(f"(b) {tag} rank {r}", kept["sorted_sids"],
+                             ranks[r][f"{tag}_beams"],
+                             ranks[r][f"{tag}_scores"])
+            reduces = st["collectives"]["counts_by_op"].get("all-reduce", 0)
+            if tag == "2x1":
+                ok = (st["launches"] == {"vntk_topk": n_sparse}
+                      and reduces == 0
+                      and st["edges_rows"] == tm.edges.shape[0])
+            else:
+                ok = (st["launches"] == {} and reduces == n_sparse
+                      and st["edges_rows"] == e_pad // 2
+                      and st["collectives"]["bytes_by_op"]["all-reduce"]
+                      == n_sparse * (nb * 2 * C * 12 + nb * C * 4))
+            if not ok:
+                raise AssertionError(f"(b) {tag} rank {r}: {st}")
+        out["b_" + tag] = dict(
+            rows=stats[0][tag]["rows"],
+            median_ms=[s[tag]["median_ms"] for s in stats],
+            edges_bytes=[s[tag]["edges_bytes"] for s in stats],
+            collectives=stats[0][tag]["collectives"],
+            launches=stats[0][tag]["launches"])
+        log(f"  (b) {tag} {stats[0][tag]['rows']}: both ranks' all-gathered "
+            f"results bit-equal to GenerativeRetriever; median retrieve "
+            f"{out['b_' + tag]['median_ms']} ms per rank; edges bytes per "
+            f"rank {out['b_' + tag]['edges_bytes']}; collectives "
+            f"{stats[0][tag]['collectives']}")
+    out["b_seconds"] = time.time() - t0
+    child_launches = sum(s["2x1"]["launches"]["vntk_topk"] for s in stats)
+    del params, tm, want
+    free_cuda()
+    return out, spmd_launches, child_launches
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -4433,6 +4744,8 @@ def main() -> int:
     print(json.dumps({"table1": table1}), flush=True)
     log(f"  phase 8 took {table1['seconds']:.1f}s")
     peaks.append(torch.cuda.max_memory_allocated())  # phase 8
+    kept = dict(tm=idx["tm"].to("cpu"), store=idx["store"].to("cpu"),
+                slot_sids=idx["slot_sids"], sorted_sids=idx["sorted_sids"])
     del idx, params, single, policies, tm_cut
     gc.collect()
     torch.cuda.empty_cache()
@@ -4483,9 +4796,18 @@ def main() -> int:
                      if isinstance(v, dict)) * 1e9)
     print(json.dumps({"families": families}), flush=True)
     log(f"  phase 13 took {families['seconds']:.1f}s")
+    log("phase 14: SPMD serving over a process mesh")
+    t0 = time.time()
+    spmd, spmd_launches, child_launches = phase_spmd(args, kept)
+    launches["vntk_stacked_topk"] += spmd_launches
+    launches["vntk_topk"] += child_launches
+    spmd["seconds"] = time.time() - t0
+    peaks.append(spmd["a"]["peak_gb"] * 1e9)
+    print(json.dumps({"spmd": spmd}), flush=True)
+    log(f"  phase 14 took {spmd['seconds']:.1f}s")
 
     peak = max(peaks)
-    log(f"phase 14: report ({time.time() - t_start:.1f}s total; peak device "
+    log(f"phase 15: report ({time.time() - t_start:.1f}s total; peak device "
         f"memory {peak / 1e9:.1f} GB)")
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",

@@ -2,11 +2,10 @@
 stacked multi-tenant :class:`~repro_torch.constraints.ConstraintStore`, and
 the paper's §5.2 baselines.
 
-Counterparts of ``repro.decoding.backends`` (without ``shardings``, which
-is not ported yet).  A backend masks one decode step and reports,
-vocab-aligned, where each token emission leads (DESIGN.md §3.1), or — on
-candidate-compressed levels — each beam's dense-rank top-C ``(scores,
-tokens, next_states)`` (DESIGN.md §8).  The stacked backend keys every
+Counterparts of ``repro.decoding.backends``.  A backend masks one decode
+step and reports, vocab-aligned, where each token emission leads
+(DESIGN.md §3.1), or — on candidate-compressed levels — each beam's
+dense-rank top-C ``(scores, tokens, next_states)`` (DESIGN.md §8).  The stacked backend keys every
 lookup on per-row ``constraint_ids`` (DESIGN.md §4).  With a
 delta-compressed ``slab`` (DESIGN.md §11) every sparse lookup reads the
 slab's token deltas instead of the ``(token, next)`` pairs, with equal
@@ -18,6 +17,15 @@ have no fused or candidate step.
 
 ``device`` is the device of the tables a backend holds, or ``None`` for
 the host trie and the unconstrained step, which hold none.
+
+``shardings(mesh, rows=...)`` gives the backend's placement on a process
+mesh (DESIGN.md §6): the backend's own dataclass with a spec
+(:mod:`repro_torch.distributed.sharding`) in place of every tensor.
+``rows="replicated"`` replicates every table (paper §A.3); ``rows="model"``
+row-shards the CSR ``edges`` slab, and the compressed ``tok_delta`` beside
+it, along the mesh's ``model`` axis, for tries that outgrow one device
+(:mod:`repro_torch.distributed.constraint_sharding`).  Backends without a
+CSR replicate either way.
 """
 from __future__ import annotations
 
@@ -43,6 +51,42 @@ __all__ = ["Levels", "BACKENDS", "StaticBackend", "StackedStaticBackend",
            "UnconstrainedBackend"]
 
 Levels = Literal["auto", "dense", "sparse"]
+Rows = Literal["replicated", "model"]
+
+
+def _check_rows(rows: str) -> None:
+    if rows not in ("replicated", "model"):
+        raise ValueError(
+            f"rows must be 'replicated' or 'model', got {rows!r}")
+
+
+def _replicated_specs(obj):
+    """``obj`` with ``()`` (replicated) in place of every tensor, through
+    nested dataclasses: the §A.3 default placement."""
+    changes = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            changes[f.name] = ()
+        elif dataclasses.is_dataclass(v):
+            changes[f.name] = _replicated_specs(v)
+    return dataclasses.replace(obj, **changes) if changes else obj
+
+
+def _static_specs(backend, field: str, mesh, rows: Rows, edges_spec,
+                  delta_spec):
+    """STATIC placement: replicated, or under ``rows="model"`` the CSR
+    ``edges`` of ``backend.<field>`` (and the slab's ``tok_delta``) row-
+    sharded over ``model``."""
+    _check_rows(rows)
+    specs = _replicated_specs(backend)
+    if rows == "model" and "model" in mesh.mesh_dim_names:
+        tables = dataclasses.replace(getattr(specs, field), edges=edges_spec)
+        specs = dataclasses.replace(specs, **{field: tables})
+        if backend.slab is not None:
+            specs = dataclasses.replace(specs, slab=dataclasses.replace(
+                specs.slab, tok_delta=delta_spec))
+    return specs
 
 
 def _check_step(step: int, sid_length: int) -> None:
@@ -119,6 +163,10 @@ class StaticBackend:
 
     def candidate_width(self, beams: int) -> int:
         return candidate_width(beams, self.tm.vocab_size)
+
+    def shardings(self, mesh, *, rows: Rows = "replicated"):
+        return _static_specs(self, "tm", mesh, rows, ("model", None),
+                             ("model",))
 
     def _bmax(self, step: int) -> int:
         return max(self.tm.bmax_for_step(step), 1)
@@ -252,6 +300,10 @@ class StackedStaticBackend:
     def candidate_width(self, beams: int) -> int:
         return candidate_width(beams, self.store.vocab_size)
 
+    def shardings(self, mesh, *, rows: Rows = "replicated"):
+        return _static_specs(self, "store", mesh, rows,
+                             (None, "model", None), (None, "model"))
+
     def _bmax(self, step: int) -> int:
         return max(self.store.bmax_for_step(step), 1)
 
@@ -364,6 +416,13 @@ class _Baseline:
     needs_prefix = True
     supports_topk = False
 
+    def shardings(self, mesh, *, rows: Rows = "replicated"):
+        """Replicated: the host trie has no device tables; the sorted SID
+        tables are probed by binary search and the bitmap at random bits,
+        so row-sharding would cost a cross-shard hop per probe."""
+        _check_rows(rows)
+        return _replicated_specs(self)
+
     def _checked(self, step, prefix_tokens, constraint_ids) -> None:
         who = type(self).__name__
         _reject_constraint_ids(constraint_ids, who)
@@ -472,6 +531,10 @@ class UnconstrainedBackend:
     supports_topk = False
     sid_length = None
     device = None
+
+    def shardings(self, mesh, *, rows: Rows = "replicated"):
+        _check_rows(rows)
+        return self
 
     def mask_step(self, log_probs, nodes, step, *, prefix_tokens=None,
                   constraint_ids=None):

@@ -1,14 +1,14 @@
 """DecodePolicy — a per-level constraint plan for beam decoding.
 
-Counterpart of ``repro.decoding.policy.DecodePolicy`` (without
-``shardings``, which is not ported yet): it binds which backend masks each
-decode level (STATIC over one matrix or a stacked multi-tenant store, or one
-of the paper's §5.2 baselines) and normalizes Phase 1 (log-softmax) unless
-the backend fuses it.  Over an all-sparse index it also masks rows at mixed
+Counterpart of ``repro.decoding.policy.DecodePolicy``: it binds which
+backend masks each decode level (STATIC over one matrix or a stacked
+multi-tenant store, or one of the paper's §5.2 baselines) and normalizes
+Phase 1 (log-softmax) unless the backend fuses it.  Over an all-sparse index it also masks rows at mixed
 decode levels in one call, sharing mask rows across beams on one trie node
 (the continuous engine's step, DESIGN.md §10).  Per-row ``constraint_ids``
 reach only the backends that read a stacked store, and the emitted tokens
-(``prefix_tokens``) the baselines that mask by them.
+(``prefix_tokens``) the baselines that mask by them.  ``shardings`` places
+the policy on a process mesh (DESIGN.md §6).
 """
 from __future__ import annotations
 
@@ -112,6 +112,13 @@ class DecodePolicy:
             if isinstance(b, StaticBackend):
                 return b.tm
         return None
+
+    def shardings(self, mesh, *, rows: str = "replicated") -> "DecodePolicy":
+        """The policy with every backend replaced by its ``shardings`` spec
+        tree (DESIGN.md §6): the same structure, static fields kept, a spec
+        in place of every tensor."""
+        return dataclasses.replace(self, backends=tuple(
+            b.shardings(mesh, rows=rows) for b in self.backends))
 
     def _ids_for(self, b, constraint_ids):
         """The ids a backend takes: only stacked backends read them."""

@@ -22,8 +22,16 @@ launcher's defaults).  Weights are random, made from ``--seed``.
   level-free mask needs the all-sparse index, so the index is built at
   ``dense_d=0``.  The run prints the request latencies, slot reuse and
   both share-hit counts.
+* ``spmd`` (or ``--spmd``): ``SpmdRetriever`` over a ``(data, model)``
+  process mesh (DESIGN.md §6), timed like ``batch``.  Under ``torchrun``
+  (``torchrun --nproc-per-node N -m repro_torch.launch.serve --engine
+  spmd``) every rank joins that world, one card each; otherwise the run is
+  a world of one.  ``--spmd-rows replicated`` (default) replicates the trie
+  and splits the batch over every rank; ``--spmd-rows model`` puts two
+  ranks on the ``model`` axis, each holding half the CSR edge slab, and
+  serves the plain-torch row-sharded step (``impl="plain"``).
 
-Either way the run checks that every emitted beam is a member of the
+Every engine checks that every emitted beam is a member of the
 constraint set, and exits 1 if one is not.  ``--unconstrained`` (batch
 only) decodes with no constraint (the latency lower bound of Table 1): no
 index is built, and the share of beams in the set is reported, not
@@ -41,6 +49,7 @@ from __future__ import annotations
 import argparse
 import logging
 import time
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -51,6 +60,7 @@ from repro_torch.core import TransitionMatrix
 from repro_torch.core.trie import sorted_unique_sids
 from repro_torch.core.vntk import NEG_INF
 from repro_torch.decoding import DecodePolicy
+from repro_torch.launch.mesh import make_debug_mesh, world
 from repro_torch.models import transformer
 from repro_torch.observability import MetricsRegistry, StepTimer, start_http_server
 from repro_torch.reliability import (
@@ -62,6 +72,7 @@ from repro_torch.reliability import (
 from repro_torch.serving import RequestQueue
 from repro_torch.serving.continuous import ContinuousServingEngine
 from repro_torch.serving.generative_retrieval import GenerativeRetriever
+from repro_torch.serving.spmd_engine import SpmdRetriever
 
 logger = logging.getLogger("repro_torch.launch.serve")
 
@@ -113,11 +124,22 @@ def main(argv=None):
     ap.add_argument("--no-topk", action="store_true",
                     help="vocab-aligned constraint step instead of the "
                          "candidate-compressed one (DESIGN.md §8)")
-    ap.add_argument("--engine", choices=["batch", "continuous"],
+    ap.add_argument("--engine", choices=["batch", "continuous", "spmd"],
                     default="batch",
                     help="batch: retrieve over fixed batches; continuous: "
                          "the step-boundary ContinuousServingEngine over a "
-                         "request queue (builds the index at dense_d=0)")
+                         "request queue (builds the index at dense_d=0); "
+                         "spmd: SpmdRetriever over a process mesh")
+    ap.add_argument("--spmd", action="store_true",
+                    help="alias for --engine spmd: serve over a (data, "
+                         "model) mesh of every rank of the torchrun world, "
+                         "or a world of one")
+    ap.add_argument("--spmd-rows", choices=["replicated", "model"],
+                    default="replicated",
+                    help="CSR placement under --engine spmd: replicate the "
+                         "trie (paper §A.3) or row-shard its edges over a "
+                         "2-way model axis with a one-hop all-reduce "
+                         "(DESIGN.md §6; the plain-torch step)")
     ap.add_argument("--metrics-json", metavar="PATH", default=None,
                     help="append a JSON-lines MetricsRegistry snapshot to "
                          "PATH on exit (DESIGN.md §9)")
@@ -143,6 +165,8 @@ def main(argv=None):
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
 
     device = resolve_device(args.device)
+    if args.spmd:
+        args.engine = "spmd"
     if args.engine == "continuous" and args.unconstrained:
         ap.error("--unconstrained serves the batch engine only (the "
                  "continuous engine masks level-free over an index)")
@@ -165,7 +189,10 @@ def main(argv=None):
         if health is not None:
             logger.info("health:  http://127.0.0.1:%d/healthz", port)
     try:
-        with active_injector(injector):  # uninstalled again on the way out
+        # the injector is uninstalled on the way out; spmd joins torchrun's
+        # world, or makes a world of one and destroys it after
+        spmd = world(device) if args.engine == "spmd" else nullcontext()
+        with active_injector(injector), spmd:
             return serve(args, device, injector, metrics, breaker)
     finally:
         if server is not None:
@@ -195,12 +222,23 @@ def serve(args, device, injector, metrics, breaker) -> int:
         t0 = time.time()
         tm = TransitionMatrix.from_sids(sids, vocab, dense_d=dense_d,
                                         device=device)
+        rows_model = args.engine == "spmd" and args.spmd_rows == "model"
         policy = DecodePolicy.static(tm, fused=args.fused,
-                                     topk=not args.no_topk)
+                                     topk=not args.no_topk,
+                                     impl="plain" if rows_model else None)
         logger.info("constraint index: %d states (%.2fs build); policy %s",
                     tm.n_states, time.time() - t0, policy.describe())
     params = transformer.init_params(cfg, seed=args.seed, device=device)
-    r = GenerativeRetriever(params, cfg, policy, L, vocab, beam_size=beam)
+    if args.engine == "spmd":
+        mesh = make_debug_mesh(model=2 if args.spmd_rows == "model" else 1)
+        logger.info("SPMD mesh: %s over %d rank(s), CSR rows=%s",
+                    dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                    mesh.size(), args.spmd_rows)
+        r = SpmdRetriever(params, cfg, policy, L, vocab, beam_size=beam,
+                          mesh=mesh, rows=args.spmd_rows)
+    else:
+        r = GenerativeRetriever(params, cfg, policy, L, vocab,
+                                beam_size=beam)
     if continuous:
         beams, scores = serve_continuous(args, r, hist_len, rng, metrics,
                                          breaker)

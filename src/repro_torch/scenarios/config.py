@@ -135,7 +135,7 @@ class ServeConfig:
     not the reference's ``"xla"``/``"pallas"``: a reference value raises.
     """
 
-    engine: str = "batch"  # | "spmd" (not ported: ROADMAP.md item 13)
+    engine: str = "batch"  # | "spmd" (SpmdServingEngine over a mesh)
     beam: int = 20
     batch_size: int = 16
     impl: Optional[str] = None

@@ -22,8 +22,8 @@ refresh_churn       multi_constraint under live catalog churn: an
                     AsyncRefresher splices deltas between batches; swaps
                     must stay zero-recompile.
 spmd_smoke          The multi-constraint batch served through the SPMD
-                    engine over a debug mesh (not ported: its serve
-                    stage raises, ROADMAP.md item 13).
+                    engine over a debug mesh of the world's ranks,
+                    bit-identical to a single-device retrieve.
 ==================  =====================================================
 """
 from __future__ import annotations
@@ -238,7 +238,7 @@ def _spmd_smoke() -> ScenarioSpec:
     return ScenarioSpec(
         name="spmd_smoke",
         description=("the mixed-constraint batch through the SPMD engine "
-                     "over a debug mesh (not ported: ROADMAP.md item 13)"),
+                     "over a debug mesh, bit-identical to single-device"),
         config=cfg,
         smoke_overrides={
             "data.n_items": 600,

@@ -14,7 +14,12 @@ Semantic IDs (:mod:`repro_torch.models.rqvae`), the slots' tries through
 :class:`~repro_torch.training.Trainer`, and serving through
 ``DecodePolicy.stacked`` + :class:`~repro_torch.serving.generative_retrieval
 .GenerativeRetriever` behind a :class:`~repro_torch.serving.engine
-.ServingEngine` — on the card, the stacked top-k VNTK kernel.
+.ServingEngine` — on the card, the stacked top-k VNTK kernel.  With
+``serve.engine="spmd"`` the serve stage runs
+:class:`~repro_torch.serving.spmd_engine.SpmdServingEngine` over a process
+mesh of the world that exists (or a world of one it creates and destroys),
+and the eval stage gates its results bit-identical to a single-device
+retrieve.
 
 Every stage runs on ``ctx["device"]`` (set by :func:`run_pipeline`: the
 card unless the caller names another).  Seed discipline: every stochastic
@@ -43,11 +48,13 @@ from repro_torch.core.vntk import NEG_INF
 from repro_torch.data.amazon import make_cold_start_dataset
 from repro_torch.data.loader import ShardedBatcher
 from repro_torch.decoding import DecodePolicy
+from repro_torch.launch.mesh import make_debug_mesh, world
 from repro_torch.models import rqvae, transformer
 from repro_torch.scenarios import trie_signal
 from repro_torch.scenarios.config import ScenarioConfig, SlotSpec
 from repro_torch.serving.engine import RequestQueue, ServingEngine
 from repro_torch.serving.generative_retrieval import GenerativeRetriever
+from repro_torch.serving.spmd_engine import SpmdRetriever, SpmdServingEngine
 from repro_torch.training.optimizer import adamw
 from repro_torch.training.trainer import Trainer, TrainerConfig
 from repro_torch.training.tree import tree_leaves, unflatten_like
@@ -368,7 +375,9 @@ class TrainStage(Stage):
 
 
 class ServeStage(Stage):
-    """Serve eval traffic through the batch engine over the registry store."""
+    """Serve eval traffic through a real engine over the registry store:
+    ``ServingEngine`` (``serve.engine="batch"``) or ``SpmdServingEngine``
+    over a debug mesh (``"spmd"``)."""
 
     name = "serve"
 
@@ -379,25 +388,31 @@ class ServeStage(Stage):
     def _retriever_and_engine(self, cfg, ctx, prompt_width: int,
                               constrained: bool):
         sv = cfg.serve
-        if sv.engine == "spmd":
-            raise NotImplementedError(
-                "serve.engine='spmd' (SpmdRetriever/SpmdServingEngine over a "
-                "device mesh) is not ported to repro_torch yet: ROADMAP.md "
-                "item 13")
-        if sv.engine != "batch":
-            raise ValueError(f"unknown serve engine {sv.engine!r}")
         L, V = ctx["sid_length"], ctx["vocab"]
         policy = (
             DecodePolicy.stacked(ctx["store"], impl=sv.impl, fused=sv.fused,
                                  topk=sv.topk)
             if constrained else DecodePolicy.unconstrained()
         )
-        retr = GenerativeRetriever(
-            ctx["params"], ctx["model_cfg"], policy, L, V, beam_size=sv.beam)
-        engine = ServingEngine(
-            ctx["params"], ctx["model_cfg"], sv.batch_size,
-            max_len=2 * prompt_width, retriever=retr,
-            registry=ctx["registry"] if constrained else None)
+        registry = ctx["registry"] if constrained else None
+        if sv.engine == "spmd":
+            mesh = make_debug_mesh(
+                model=2 if sv.spmd_rows == "model" else 1)
+            retr = SpmdRetriever(
+                ctx["params"], ctx["model_cfg"], policy, L, V,
+                beam_size=sv.beam, mesh=mesh, rows=sv.spmd_rows)
+            engine = SpmdServingEngine(
+                retr, registry=registry, slots=sv.batch_size,
+                prompt_width=prompt_width)
+        elif sv.engine == "batch":
+            retr = GenerativeRetriever(
+                ctx["params"], ctx["model_cfg"], policy, L, V,
+                beam_size=sv.beam)
+            engine = ServingEngine(
+                ctx["params"], ctx["model_cfg"], sv.batch_size,
+                max_len=2 * prompt_width, retriever=retr, registry=registry)
+        else:
+            raise ValueError(f"unknown serve engine {sv.engine!r}")
         return retr, engine
 
     @staticmethod
@@ -494,14 +509,24 @@ class ServeStage(Stage):
             "unexpected_recompiles": int(engine.metrics.counter(
                 "serving_recompiles_total").value(expected="false")),
         }
+        if sv.engine == "spmd":
+            # bit-identity reference: the same policy + params on one device
+            retr = GenerativeRetriever(
+                ctx["params"], ctx["model_cfg"],
+                DecodePolicy.stacked(reg.current()[0], impl=sv.impl,
+                                     fused=sv.fused, topk=sv.topk),
+                L, V, beam_size=sv.beam)
+            ctx["reference_results"] = retr.retrieve(
+                hist, constraint_ids=cids)
         log(f"  served {sv.n_requests} mixed-constraint requests over "
             f"{n_slots} slots ({sv.engine} engine)")
 
     def run(self, cfg, ctx, log):
-        if "data" in ctx:
-            self._run_cold_start(cfg, ctx, log)
-        else:
-            self._run_catalog(cfg, ctx, log)
+        run = self._run_cold_start if "data" in ctx else self._run_catalog
+        if cfg.serve.engine != "spmd":
+            return run(cfg, ctx, log)
+        with world(ctx["device"]):  # the world that exists, or one of one
+            run(cfg, ctx, log)
 
 
 class EvalStage(Stage):
@@ -585,16 +610,23 @@ class EvalStage(Stage):
             "zero_unexpected_recompiles":
                 meta["unexpected_recompiles"] == 0,
         }
-        gates["passed"] = all(gates.values())
-        ctx["result"] = {
+        result = {
             "scenario": cfg.name,
             "n_requests": meta["n_requests"],
             "n_slots": len(names),
             "alive_beams": total,
             "compliance": compliance,
             "serve_meta": meta,
-            "gates": gates,
         }
+        if "reference_results" in ctx:
+            ref_beams, ref_scores = ctx["reference_results"]
+            identical = bool(np.array_equal(ref_beams, beams)
+                             and np.array_equal(ref_scores, scores))
+            gates["spmd_bit_identical"] = identical
+            result["spmd_bit_identical"] = identical
+        gates["passed"] = all(gates.values())
+        result["gates"] = gates
+        ctx["result"] = result
         log(f"  compliance {compliance:.3f} over {total} alive beams; "
             f"gates passed: {gates['passed']}")
 

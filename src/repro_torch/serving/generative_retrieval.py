@@ -115,7 +115,10 @@ class GenerativeRetriever:
             tokens, scores = self._retrieve(hist, cids)
             return tokens.cpu().numpy(), scores.cpu().numpy()
 
-    def _retrieve(self, history: torch.Tensor, constraint_ids=None):
+    def _retrieve(self, history: torch.Tensor, constraint_ids=None,
+                  policy=None):
+        """The retrieve of ``history`` on the device, under ``policy``
+        (default ``self.policy``)."""
         B, S = history.shape
         M, V = self.M, self.V
         pre_logits, cache = transformer.prefill(
@@ -137,7 +140,8 @@ class GenerativeRetriever:
                                        v=c.v.index_select(1, flat))
 
         state, _ = beam_search(
-            logits_fn, cache, B, M, self.L, self.policy,
+            logits_fn, cache, B, M, self.L,
+            self.policy if policy is None else policy,
             carry_gather_fn=gather_cache,
             first_logits=pre_logits[:, 0, :V],
             constraint_ids=constraint_ids,

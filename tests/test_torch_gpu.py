@@ -26,7 +26,8 @@ against ``decode_step``, and the engine against ``ServingEngine`` at equal
 shapes, bit for bit.  Tiering: the tiered search with the kernels on a hot
 slab of exactly ``cold_base`` rows, bit-equal to the untiered search, and
 the prefetcher's pinned staging; ``gr_decode_step`` in bf16 against float32
-on the CPU; ``StepTimer`` on the card.
+on the CPU; ``StepTimer`` on the card; ``SpmdRetriever`` in a world of one
+over nccl, bit-equal to ``GenerativeRetriever``.
 """
 import threading
 
@@ -1151,3 +1152,37 @@ def test_moe_decode_step_is_deterministic_on_the_card(arch):
         tok[:, 12:], cfg)[0] for _ in range(2)]
     assert torch.isfinite(logits[0]).all()
     assert torch.equal(logits[0], logits[1])
+
+
+@pytest.mark.gpu
+def test_spmd_retriever_in_a_world_of_one_on_the_card(rng):
+    """A world of one over nccl, mesh (1, 1): ``SpmdRetriever`` on a
+    stacked store equals ``GenerativeRetriever`` bit for bit, through the
+    stacked topk kernel, and the world is gone after."""
+    _card()
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh, world
+    from repro_torch.serving.spmd_engine import SpmdRetriever
+
+    V, L = 32, 4
+    cfg = TransformerConfig(name="gr-tiny", n_layers=2, d_model=32,
+                            n_heads=4, n_kv_heads=2, d_ff=64, vocab_size=34,
+                            dtype="float32", tie_embeddings=True)
+    params = transformer.init_params(cfg, 0, device="cuda")
+    store = _registry(V, headroom=0.5).build(_catalog(rng, 120, V, L))
+    hist = rng.integers(0, 34, (3, 8))
+    cids = np.array([0, 1, 1], np.int32)
+    with world("cuda"):
+        assert dist.get_backend() == "nccl"
+        r = SpmdRetriever(params, cfg, store, L, V, beam_size=4,
+                          mesh=make_debug_mesh(model=2))
+        kv.reset_launches()
+        got = r.retrieve(hist, cids)
+        assert kv.LAUNCHES["vntk_stacked_topk"] == L - store.dense_d
+        assert sum(kv.LAUNCHES.values()) == L - store.dense_d
+    assert not dist.is_initialized()
+    want = GenerativeRetriever(params, cfg, store, L, V,
+                               beam_size=4).retrieve(hist, cids)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])

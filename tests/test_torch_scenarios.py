@@ -5,7 +5,8 @@ the reference (names, smoke shrink, dotted overrides, seed precedence,
 loud failure on typos), the trie-aware signal's arrays equal to the
 reference's, the port's whole ``cold_start_amazon`` pipeline passing its
 own gates and bit-reproducible under one seed, the catalog scenarios at
-full compliance, ``spmd_smoke`` refusing (ROADMAP.md item 13), and the
+full compliance, ``spmd_smoke`` passing its gates (bit-identical to a
+single-device retrieve) under both CSR placements, and the
 ``run_scenario`` launcher.  Everything runs with ``device="cpu"``; without
 it every entry point wants the card.
 """
@@ -248,11 +249,20 @@ def test_catalog_scenarios_full_compliance(name, overrides):
     assert meta["unexpected_recompiles"] == 0
 
 
-def test_spmd_smoke_refuses_and_names_item_13():
-    run = get_default_registry().resolve("spmd_smoke", smoke=True,
-                                         device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run.run()
+@pytest.mark.parametrize("overrides", [
+    {}, {"serve.spmd_rows": "model", "serve.impl": "plain"}])
+def test_spmd_smoke_passes_its_gates(overrides):
+    """The SPMD engine over a world of one it creates (and destroys):
+    full compliance and results bit-identical to a single-device
+    retrieve."""
+    res = get_default_registry().resolve(
+        "spmd_smoke", smoke=True, overrides=overrides,
+        device="cpu").run()["result"]
+    assert res["serve_meta"]["engine"] == "spmd"
+    assert res["alive_beams"] > 0 and res["compliance"] == 1.0
+    assert res["spmd_bit_identical"] is True
+    assert res["gates"]["spmd_bit_identical"] and res["gates"]["passed"]
+    assert not torch.distributed.is_initialized()
 
 
 # ---------------------------------------------------------------------------
