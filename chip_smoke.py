@@ -36,10 +36,10 @@ Phases (any failure raises and the script exits non-zero):
               whose last member's deepest edges lie past 2^31 int32 elements
               from the store's base, where tokens and next states must equal
               the single-matrix kernel's.  The compressed-slab functions run
-              the same shapes over the slabs, an int32 slab (V > 32768, a
-              root row of ~40k slots for the mask kernels, cut to 4096 for
-              the topk ones, and level 1) besides, and must also equal their
-              uncompressed twin kernels on the same rows.  The topk kernel
+              the same shapes over the slabs, an int32 slab (V > 32768, its
+              root row of ~40k slots, and level 1 for the topk ones)
+              besides, and must also equal their uncompressed twin kernels
+              on the same rows.  The topk kernel
               takes a warp per row for bmax <= 32 and a block per row above;
               each topk function must be checked on both routes: the warp
               route also at bmax = 32 exactly (a root row cut to 32 slots;
@@ -55,7 +55,17 @@ Phases (any failure raises and the script exits non-zero):
               small tries at V = 64 and V = 62 (V % 4 != 0: scalar loads
               and scalar fill) cut to 32 and 33 with valid values at
               NEG_INF, -inf and (not fused) -FLT_MAX, and (fused) logit
-              rows off 16-byte alignment.
+              rows off 16-byte alignment.  The topk block route (a radix
+              select, no cap on the row width) for all twelve of its
+              instantiations (int2 pairs; int16 deltas at V <= 32,768, int32
+              above): the eight functions at the root rows of dense_d=0
+              tries (every third row on level 1, every seventh at the sink,
+              nb = 140): V = 2,048 cut to bmax 33 and whole, V = 32,768
+              whole, V = 40,000 cut to 33 and whole (~40k slots), V =
+              65,536 whole (its ~65.5k keys past the block's shared memory:
+              every pass re-reads them); each timed at the V = 32,768 root
+              row (a ``..._block_v32768`` row of the JSON line), staged
+              and with its keys re-read (``reread_ms``).
               Tokens and next states must be equal; scores equal when not
               fused, within rtol/atol 1e-5 when fused.  Device times come
               from CUDA graphs of back-to-back calls timed by CUDA events;
@@ -148,12 +158,20 @@ Phases (any failure raises and the script exits non-zero):
               It prints the worker's seconds (trie assembly, upload and
               stack, flip), the largest staleness, batch latencies before,
               during and after the refresh, and the peak device memory
-              during the swap.  (c) A second registry of 100,000 seeded
-              items at headroom 0 and ``swap_async`` of a 300,000-item
-              snapshot: one cold swap, exactly 1 specialization on the next
-              batch and 0 on the one after, compliance under the regrown
-              store.  (d) ``ServingEngine.generate``, greedy, B = 2, 4
-              tokens, equal to a manual ``prefill``/``decode_step`` loop.
+              during the swap.  (b2) The stall apart: against 3 quiet rounds
+              just before, the rounds served while (i) the host assembles
+              another 1% delta alone (``assemble_delta``, nothing committed,
+              no upload) and (ii) its back buffer is uploaded 3 times on a
+              stream of its own (``store.with_members``: pinned staging,
+              ``non_blocking`` copies), then (iii) the same 3 uploads with
+              pageable copies (the store's former upload); each round's ms
+              and the work's seconds are printed.  (c) A second registry of
+              100,000 seeded items at headroom 0 and ``swap_async`` of a
+              300,000-item snapshot: one cold swap, exactly 1
+              specialization on the next batch and 0 on the one after,
+              compliance under the regrown store.  (d)
+              ``ServingEngine.generate``, greedy, B = 2, 4 tokens, equal to
+              a manual ``prefill``/``decode_step`` loop.
               (e) After (b): ``start_http_server`` over the engine's
               ``MetricsRegistry`` with a ``HealthMonitor`` over its breaker
               and the refresher's staleness: ``/metrics`` must hold the
@@ -188,7 +206,12 @@ Phases (any failure raises and the script exits non-zero):
               A 100,000-item dense_d=0 registry at headroom 0.5: serve,
               ``registry.swap`` of a churned catalog within headroom, serve
               again: 0 specializations across the swap, no request dropped,
-              every row compliant with its version.  Every result must be
+              every row compliant with its version.  (iv) The block route on
+              the main path: one retrieve under each of the eight topk
+              policies over the dense_d=0 store (the four stacked ones, B =
+              5; the four single-matrix ones over its member 0, B = 2): L
+              launches of its kernel and no other, levels 0-1 on the block
+              route, compressed twins bit-equal.  Every result must be
               100% compliant; every continuous serve must launch the stacked
               mask kernel once per step and no other VNTK kernel, and every
               batch serve the stacked topk kernel L = 8 times per batch (the
@@ -200,9 +223,14 @@ Phases (any failure raises and the script exits non-zero):
               routes are held against their plain versions and timed (CUDA
               graphs, as in phase 3): the stacked mask kernel at nb = 350,
               the global bmax and zero log-probs (the shared step's input)
-              on the engine's nodes after the second wave, and the stacked
-              topk kernel at levels 0-1 of the store (nb = 350, C = 72);
-              each is a ``..._block`` row of the JSON line.
+              on the engine's nodes after the second wave, and the eight
+              topk functions at levels 0-1 (C = 72): the stacked ones over
+              the store (nb = 350), the single-matrix ones over its member 0
+              (nb = 140), the compressed ones over slabs of the same tables
+              and against their twins, each also with its keys re-read in
+              every pass, not staged (compared and timed, ``reread_ms``);
+              each is a ``..._block`` row of the JSON line, its launches
+              the block route's in this phase.
 8. table1   — the paper's Table 1 baselines (§5.2) beside STATIC, while
               the catalog trie, the store and the model are on the card:
               DISC-PPV's sorted table of the whole catalog (exact, and
@@ -368,7 +396,9 @@ Phases (any failure raises and the script exits non-zero):
 15. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
               with a row per kernel function (a VNTK row with the ``path``
               its main-path levels took, ``warp`` or ``block``, for topk
-              and mask alike, and phase 7's two ``block`` rows; for the bag,
+              and mask alike; phase 7's ``..._block`` rows; phase 3's
+              ``..._block_v32768`` rows, whose launches are those of the
+              1,024-thread instantiation on the main path; for the bag,
               one per timed shape, each with its load ``path``; a
               single-table row counts the main path's launches at its
               per-table (B, K, D), all of them grouped), then the last line
@@ -386,6 +416,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -602,25 +633,34 @@ KERNELS = {
 VNTK_SOURCE = "src/repro_torch/kernels/csrc/vntk.cu"
 
 
-def n_child(rp, nodes, cids=None) -> np.ndarray:
-    """Children of each row's node (of its member when stacked)."""
+def n_child(rp, nodes, cids=None, distinct=False) -> np.ndarray:
+    """Children of each row's node (of its member when stacked); with
+    ``distinct``, of each distinct (member, node) once."""
     n = nodes.long()
-    if cids is None:
+    k = None if cids is None else cids.long().clamp(0, rp.shape[0] - 1)
+    if distinct:
+        pairs = torch.stack([n if k is None else k, n])
+        pairs = torch.unique(pairs, dim=1)
+        n, k = pairs[1], None if k is None else pairs[0]
+    if k is None:
         return (rp[n + 1] - rp[n]).cpu().numpy()
-    k = cids.long().clamp(0, rp.shape[0] - 1)
     return (rp[k, n + 1] - rp[k, n]).cpu().numpy()
 
 
-def needed_bytes(topk, fused, stacked, children, bmax, V, width,
+def needed_bytes(topk, fused, stacked, children, shared, bmax, V, width,
                  edge_bytes=8, base_bytes=0) -> int:
     """Bytes the function must move for these inputs: the constraint ids
-    (stacked), the nodes, the row-pointer pairs and valid edges it reads
-    (``edge_bytes`` each: an int32 pair, or one delta of a compressed slab,
-    whose next-state bases are ``base_bytes``), the log-probs of the valid
-    slots (the whole row when it normalizes), and its outputs, each once."""
-    n_real = int(np.minimum(np.maximum(children, 0), bmax).sum())
+    (stacked) and nodes of its ``children.shape[0]`` rows; the row-pointer
+    pairs and valid edges (``edge_bytes`` each: an int32 pair, or one delta
+    of a compressed slab, whose next-state bases are ``base_bytes``) of the
+    distinct (member, node) rows, whose children are ``shared`` (rows that
+    share a node read its edges once); each row's log-probs of its valid
+    slots (the whole row when it normalizes); and its outputs, each once."""
+    n_real = int(np.clip(children, 0, bmax).sum())
+    n_edges = int(np.clip(shared, 0, bmax).sum())
     nb = children.shape[0]
-    reads = nb * 4 * (2 if stacked else 1) + nb * 8 + n_real * edge_bytes
+    reads = (nb * 4 * (2 if stacked else 1) + shared.shape[0] * 8
+             + n_edges * edge_bytes)
     reads += base_bytes + (nb * V * 4 if fused else n_real * 4)
     writes = nb * width * 12 if topk else nb * V * 8
     return reads + writes
@@ -644,6 +684,7 @@ class KernelCheck:
         self.plain = getattr(kv, f"{self.kernel}_plain")
         self.max_abs_err = 0.0
         self.times = []  # (ms, plain_ms, bound_ms) per main-path level
+        self.reread = []  # block route, keys re-read: ms per timed shape
         self.paths = []  # the route taken at each main-path level
         self.routes = set()  # the routes the comparisons took
 
@@ -703,16 +744,33 @@ class KernelCheck:
         a = self.args(values, nodes, cids, tables, bmax, V, width)
         ms = device_ms(lambda: self.cuda(*a))
         plain_ms = device_ms(lambda: self.plain(*a), iters=10)
-        children = n_child(tables[0], nodes, cids if self.stacked else None)
+        rcids = cids if self.stacked else None
+        children = n_child(tables[0], nodes, rcids)
+        shared = n_child(tables[0], nodes, rcids, distinct=True)
         edge_bytes, base_bytes = 8, 0
         if self.compressed:
             edge_bytes = tables[1].element_size()
             base_bytes = 4 * tables[2].numel()
         bound = needed_bytes(self.topk, self.fused, self.stacked, children,
-                             bmax, V, width, edge_bytes,
+                             shared, bmax, V, width, edge_bytes,
                              base_bytes) / HBM_BYTES_PER_S * 1e3
         self.times.append((ms, plain_ms, bound))
         self.paths.append(self.path(bmax))
+
+    def time_reread(self, values, nodes, cids, tables, bmax, V, width):
+        """The block route on the same rows with its keys re-read in each
+        pass (``topk_keys_reread``), not staged: compared with the plain
+        version and timed as :meth:`time` times it."""
+        from repro_torch.kernels import vntk as kv
+
+        a = self.args(values, nodes, cids, tables, bmax, V, width)
+        with kv.topk_keys_reread():
+            if kv.topk_staged(bmax):
+                raise AssertionError(f"{self.name}: keys staged at bmax "
+                                     f"{bmax} within topk_keys_reread")
+            self.compare(f"bmax {bmax}, keys re-read", values, nodes, cids,
+                         tables, bmax, V, width)
+            self.reread.append(device_ms(lambda: self.cuda(*a)))
 
     def main_path(self) -> str:
         """The route(s) of the main-path levels, e.g. ``warp``."""
@@ -840,14 +898,12 @@ def phase_kernels(rng, idx, M, checks):
                     make_values(rng, nb, V + 1, True)[:, 1:],
                     cuda_ints(level_nodes(rng, ft.level_offsets, d, nb)),
                     int(ft.level_bmax[d]), V, step=d)
-        if chk.compressed:  # the int32 slab: its root row (mask; a ~40k-slot
-            # topk row overflows smem, so cut to 4096 slots) and level 1
+        if chk.compressed:  # the int32 slab: its root row of ~40k slots
+            # and (topk) level 1
             for step in ((0, 1) if chk.topk else (0,)):
                 nodes_np = level_nodes(rng, ftb.level_offsets, step, nb)
                 nodes_np[::5] = 0
                 bmax = int(ftb.level_bmax[step])
-                if chk.topk and step == 0:
-                    bmax = 4096
                 compare(f"int32 slab, V={Vb}, step {step}, bmax {bmax}",
                         make_values(rng, nb, Vb, chk.fused),
                         cuda_ints(nodes_np), bmax, Vb, step=step, t=tmb,
@@ -1057,6 +1113,105 @@ def phase_stacked_kernels(rng, idx, M, checks, full_size):
         f"2^31) equal to the single-matrix kernels ({time.time() - t0:.1f}s)")
     del big, big_slab
     torch.cuda.empty_cache()
+
+
+TOPK_NAMES = [n for n, (k, _, _) in KERNELS.items() if k.endswith("topk")]
+# (V, SIDs of length 2 in the first member; the second holds half) of the
+# block route's tries: root rows of nearly every token.  V = 32,768 is the
+# widest int16 slab; 40,000 and 65,536 take int32 deltas, and 65,536 slots
+# pass the keys' shared memory
+BLOCK_TRIES = {2048: 40_000, 32_768: 400_000, 40_000: 480_000,
+               65_536: 800_000}
+BLOCK_TIMED_V = 32_768  # the root row timed per function (nb = 2M, C)
+
+
+def block_tables(rng, V):
+    """Two dense_d=0 tries over V tokens: ``(level offsets per member,
+    single matrix, its slab, store of both, its slab)`` on the card."""
+    from repro_torch.constraints import ConstraintStore
+    from repro_torch.core.compressed_slab import CompressedSlab
+    from repro_torch.core.transition_matrix import TransitionMatrix
+    from repro_torch.core.trie import build_flat_trie
+
+    n = BLOCK_TRIES[V]
+    fts = [build_flat_trie(rng.integers(0, V, (m, 2)), V, dense_d=0)
+           for m in (n, n // 2)]
+    mats = [TransitionMatrix.from_flat_trie(f, device="cuda") for f in fts]
+    store = ConstraintStore.from_matrices(mats, device="cuda")
+    return ([f.level_offsets for f in fts], mats[0],
+            CompressedSlab.from_matrix(mats[0]), store,
+            CompressedSlab.from_store(store))
+
+
+def phase_block_route(rng, M):
+    """The eight topk functions on the block route, every one of the twelve
+    instantiations (int2 pairs; int16 deltas at V <= 32,768, int32 above),
+    against their plain versions and the compressed ones against their
+    twins, at the root rows of dense_d=0 tries (every third row on level 1,
+    every seventh at the sink; stacked, each row on member 0 or 1): V =
+    2,048 cut to bmax 33 and whole, V = 32,768 whole, V = 40,000 cut to 33
+    and whole (~40k slots), V = 65,536 whole (past the keys' shared memory:
+    each pass re-reads them).  Each function is timed at the V = 32,768
+    root row; returns those checks by name."""
+    from repro_torch.core.vntk import candidate_width
+    from repro_torch.kernels import vntk as kv
+
+    t0 = time.time()
+    tries = {V: block_tables(rng, V) for V in BLOCK_TRIES}
+    nb = 2 * M
+    timed = {}
+    for name in TOPK_NAMES:
+        chk = KernelCheck(name)
+        for V, (offsets, tm, slab, store, sslab) in tries.items():
+            C = candidate_width(M, V)
+            ids = rng.integers(0, 2, nb).astype(np.int32)
+            nodes_np = np.ones(nb, np.int32)
+            for r in range(0, nb, 3):
+                off = offsets[ids[r] if chk.stacked else 0]
+                nodes_np[r] = rng.integers(off[1], off[2])
+            nodes_np[::7] = 0
+            nodes = cuda_ints(nodes_np)
+            cids = cuda_ints(ids) if chk.stacked else None
+            st, sl = (store, sslab) if chk.stacked else (tm, slab)
+            pairs = (st.row_pointers, st.edges)
+            tables = ((st.row_pointers, sl.tok_delta, sl.base_for_step(0))
+                      if chk.compressed else pairs)
+            root = st.bmax_for_step(0)
+            cuts = {2048: (33, root), 32_768: (root,), 40_000: (33, root),
+                    65_536: (root,)}[V]
+            for bmax in cuts:
+                values = make_values(rng, nb, V, chk.fused)
+                label = f"V={V}, bmax {bmax}"
+                if chk.compressed:
+                    chk.compare_twin(label, values, nodes, cids, tables,
+                                     pairs, bmax, V, C)
+                else:
+                    chk.compare(label, values, nodes, cids, tables, bmax, V,
+                                C)
+                if V == BLOCK_TIMED_V:
+                    chk.time(values, nodes, cids, tables, bmax, V, C)
+                    chk.time_reread(values, nodes, cids, tables, bmax, V, C)
+        if chk.routes != {"block"}:
+            raise AssertionError(f"{name}: routes {chk.routes}")
+        timed[name] = chk
+        ms, plain_ms, bound = chk.times[0]
+        log(f"  {name} block route: equal to plain at V 2048/32768/40000/"
+            f"65536 root rows (cut to 33 too), keys staged and re-read; "
+            f"max abs err {chk.max_abs_err:.3g}; V={BLOCK_TIMED_V} root row, "
+            f"nb {nb}: {ms * 1e3:.2f} us staged, {chk.reread[0] * 1e3:.2f} "
+            f"us re-read (plain {plain_ms * 1e3:.2f} us, bound "
+            f"{bound * 1e3:.3f} us)")
+    widest = tries[65_536][1].bmax_for_step(0)
+    log(f"  block route: V=32768 root row of "
+        f"{tries[32_768][1].bmax_for_step(0)} slots staged "
+        f"({kv.topk_staged(32_768)}), V=65536 root row of {widest} slots "
+        f"re-read ({not kv.topk_staged(widest)}); {time.time() - t0:.1f}s")
+    if kv.topk_staged(widest):
+        raise AssertionError(f"bmax {widest} staged: the re-read passes "
+                             "were not checked")
+    del tries
+    torch.cuda.empty_cache()
+    return timed
 
 
 def phase_golden():
@@ -1911,6 +2066,7 @@ ENGINE_BURST = (8, 4, 4, 2, 2)  # (a): requests per lane, submitted at once
 CHURN = 0.01  # (b): the refresh_churn scenario's churn, 200,000 of 20M items
 COLD_ITEMS, COLD_SNAPSHOT = 100_000, 300_000  # (c): build, then snapshot
 MIN_REFRESH_ROUNDS = 4  # (b): rounds of 5 requests served at the least
+STALL_UPLOADS = 3  # (b2): back-buffer uploads in a row while serving
 
 
 class EngineRun:
@@ -1957,6 +2113,97 @@ class EngineRun:
                                      f"{res[rid]}")
         self.results += res.values()
         return dt, prompts, res
+
+
+def serve_during(run, B, work):
+    """Rounds of B requests served while ``work()`` runs on a thread of its
+    own, at least one: ``(batch seconds of each round, its seconds, its
+    result)``."""
+    box = {}
+
+    def target():
+        t0 = time.perf_counter()
+        try:
+            box["out"] = work()
+        except BaseException as e:  # raised below, on the serving thread
+            box["err"] = e
+        box["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=target)
+    th.start()
+    times = []
+    while th.is_alive() or not times:
+        times.append(run.serve(range(B))[0])
+    th.join()
+    if "err" in box:
+        raise box["err"]
+    return times, box["s"], box.get("out")
+
+
+def stall_split(run, reg, rng, sids, B):
+    """(b2) the refresh's stall, measured apart: rounds of B requests
+    served (i) while the host assembles a 1% delta alone
+    (``assemble_delta``: the splice and re-assembly of every slot's trie
+    in the registry's thread pool, no upload, nothing committed), (ii)
+    while the back buffer of those matrices is uploaded STALL_UPLOADS times
+    on a stream of its own (``store.with_members``, as the refresher does
+    it: pinned staging, non_blocking copies), and (iii) the same uploads
+    with each table copied from pageable host memory, as the store did
+    before its pinned staging (``store._upload`` swapped for ``copy_``);
+    against (c) quiet rounds just before.  Returns the record."""
+    from unittest import mock
+
+    from repro_torch.configs import static_gr
+    from repro_torch.constraints import CatalogDelta, ItemCatalog
+    from repro_torch.constraints import store as store_mod
+
+    L, V = static_gr.SID_LENGTH, static_gr.SID_VOCAB
+    churn = round(CHURN * sids.shape[0])
+    delta = CatalogDelta(
+        removed_sids=sids[rng.choice(sids.shape[0], churn, replace=False)],
+        added=ItemCatalog(sids=rng.integers(0, V, (churn, L)),
+                          age_days=rng.uniform(0.0, 90.0, churn),
+                          category=rng.integers(0, 8, churn)))
+    store, version = reg.current()
+    quiet = [run.serve(range(B))[0] for _ in range(3)]
+    assemble, assemble_s, mats = serve_during(
+        run, B, lambda: reg.assemble_delta(delta))
+
+    def uploads():
+        torch.cuda.set_device(store.device)
+        side = torch.cuda.Stream(store.device)
+        with torch.cuda.stream(side):
+            for _ in range(STALL_UPLOADS):
+                back = store.with_members(mats)
+                side.synchronize()
+                del back
+
+    pinned, pinned_s, _ = serve_during(run, B, uploads)
+    with mock.patch.object(store_mod, "_upload",
+                           lambda out, a: out.copy_(a)):
+        pageable, pageable_s, _ = serve_during(run, B, uploads)
+    if reg.current()[1] != version:
+        raise AssertionError("(b2) changed the registry's version")
+    out = dict(quiet_batch_ms=[t * 1e3 for t in quiet],
+               assemble_batch_ms=[t * 1e3 for t in assemble],
+               assemble_s=assemble_s,
+               pinned_upload_batch_ms=[t * 1e3 for t in pinned],
+               pinned_upload_s=pinned_s / STALL_UPLOADS,
+               pageable_upload_batch_ms=[t * 1e3 for t in pageable],
+               pageable_upload_s=pageable_s / STALL_UPLOADS,
+               store_gb=store.nbytes() / 1e9)
+
+    def ms(ts):
+        return (f"median {np.median(ts) * 1e3:.1f} ms, max "
+                f"{max(ts) * 1e3:.1f} over {len(ts)}")
+
+    log(f"  (b2) the stall apart, batches of {B}: (c) quiet {ms(quiet)}; "
+        f"(a) during the host assembly alone ({assemble_s:.1f}s) "
+        f"{ms(assemble)}; (b) during {STALL_UPLOADS} uploads of the "
+        f"{store.nbytes() / 1e9:.1f} GB back buffer, pinned staging "
+        f"({pinned_s / STALL_UPLOADS:.2f}s each) {ms(pinned)}; pageable "
+        f"copies ({pageable_s / STALL_UPLOADS:.2f}s each) {ms(pageable)}")
+    return out
 
 
 def check_versions(results, sets):
@@ -2107,6 +2354,9 @@ def phase_engine(args, params, cfg, idx):
         quiet_batch_ms=[t * 1e3 for t in quiet],
         during_batch_ms=[t * 1e3 for t in during],
         after_batch_ms=[t * 1e3 for t in after], peak_gb=peak / 1e9)
+    out["stall"] = stall_split(run, reg, np.random.default_rng(
+        [args.seed, 27]), sids, B)
+    check_versions(run.results, sets)
     launches = run.launches
     hist = np.random.default_rng([args.seed, 11]).integers(
         0, cfg.vocab_size, (B, S))
@@ -2336,12 +2586,84 @@ def check_results(label, results, rids, sets):
                          r["scores"][None])
 
 
-def block_rows(rng, store, nodes, cids, M, launches):
-    """The two untimed block routes at this phase's shapes, against their
-    plain versions and timed as in phase 3: the stacked mask kernel at nb =
-    5*M rows, the store's global bmax and zero log-probs (the shared step's
-    input), on the engine's nodes; the stacked topk kernel at levels 0-1
-    (nb = 5*M, C = 72), each row on its own member's level."""
+def block_retrieves(rng, params, cfg, store, sets, M, block, wide):
+    """(iv) the block route on the main path: one retrieve under each of
+    the eight topk policies over the dense_d=0 store, the four stacked ones
+    (B = 5, request i under slot i) and the four single-matrix ones over
+    its member 0 (B = 2).  Each launches its kernel L times and no other,
+    on the block route at the levels whose bmax passes 32 (the counters
+    zeroed just before the retrieve and read just after); each compressed
+    policy equals its uncompressed twin bit for bit; every beam is in its
+    slot's set.  Adds the block-route launches to ``block``, those of its
+    1,024-thread instantiation to ``wide``."""
+    from repro_torch.configs import static_gr
+    from repro_torch.decoding import DecodePolicy
+    from repro_torch.kernels import vntk as kv
+    from repro_torch.serving import GenerativeRetriever
+
+    L, V, S = static_gr.SID_LENGTH, static_gr.SID_VOCAB, static_gr.HISTORY_LEN
+    n_block = sum(kv.topk_path(store.bmax_for_step(s)) == "block"
+                  for s in range(L))
+    member = store.member(0)
+    out = {}
+    for path, make, tables, B in (
+            ("stacked", DecodePolicy.stacked, store, store.num_sets),
+            ("static", DecodePolicy.static, member, 2)):
+        hist = rng.integers(0, cfg.vocab_size, (B, S))
+        cids = np.arange(B, dtype=np.int32)
+        first = {}
+        for fused in (False, True):
+            for compressed in (False, True):
+                kernel = ("vntk_stacked" if path == "stacked" else "vntk") + (
+                    "_compressed_topk" if compressed else "_topk")
+                name = kv.counter_name(kernel, fused)
+                r = GenerativeRetriever(
+                    params, cfg, make(tables, fused=fused,
+                                      compressed=compressed), L, V,
+                    beam_size=M)
+                torch.cuda.synchronize()
+                kv.reset_launches()  # this retrieve's run starts here
+                beams, scores = (r.retrieve(hist, cids) if path == "stacked"
+                                 else r.retrieve(hist))
+                rose, on_block = dict(kv.LAUNCHES), kv.BLOCK_LAUNCHES[name]
+                n_sparse = L - store.dense_d
+                if rose != only(name, n_sparse) or on_block != n_block:
+                    raise AssertionError(f"(iv) {path} {name}: launches "
+                                         f"{rose}, {on_block} on the block "
+                                         "route")
+                block[name] += on_block
+                wide[name] += kv.WIDE_LAUNCHES[name]
+                for i in range(B):
+                    check_compliance(f"(iv) {name} row {i}",
+                                     sets[i if path == "stacked" else 0],
+                                     beams[i:i + 1], scores[i:i + 1])
+                first[fused, compressed] = beams, scores
+            twin = first[fused, False]
+            got = first[fused, True]
+            if not (np.array_equal(got[0], twin[0])
+                    and np.array_equal(got[1], twin[1])):
+                raise AssertionError(f"(iv) {path}: the compressed policy "
+                                     f"(fused={fused}) differs from its twin")
+        out[path] = dict(batch=B, launches_per_retrieve=L - store.dense_d,
+                         block_launches_per_retrieve=n_block)
+    log(f"  (iv) the eight topk policies over the dense_d=0 store (stacked, "
+        f"B=5) and its member 0 (static, B=2): each launched its kernel "
+        f"{L - store.dense_d} times per retrieve, {n_block} on the block "
+        "route; compressed twins bit-equal; 100% compliant")
+    return out
+
+
+def block_rows(rng, store, nodes, cids, M, launches, block):
+    """The block routes at this phase's shapes, against their plain
+    versions and timed as in phase 3: the stacked mask kernel at nb = 5*M
+    rows, the store's global bmax and zero log-probs (the shared step's
+    input), on the engine's nodes; the eight topk functions at levels 0-1,
+    C = 72: the stacked ones at nb = 5*M, each row on its own member's
+    level, the single-matrix ones over member 0 at nb = 2*M (the
+    compressed ones over slabs of the same tables, against their twins
+    too).  Each is a ``..._block`` row of the JSON line, its launches the
+    block route's in this phase's runs."""
+    from repro_torch.core.compressed_slab import CompressedSlab
     from repro_torch.core.vntk import candidate_width
     from repro_torch.kernels import vntk as kv
 
@@ -2354,36 +2676,70 @@ def block_rows(rng, store, nodes, cids, M, launches):
     mask.compare("level-free rows, zero log-probs", zeros, nodes, cids,
                  (rp, edges), bmax, V, C)
     mask.time(zeros, nodes, cids, (rp, edges), bmax, V, C)
-    topk = KernelCheck("vntk_stacked_topk")
+    ms, plain_ms, bound = np.mean(mask.times, axis=0)
+    log(f"  {mask.name} block route: equal to plain; {ms * 1e3:.2f} us "
+        f"(plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us) per "
+        f"launch at nb {nb}, bmax {bmax}; {launches['mask']} launches in this "
+        "phase's runs")
+    rows = [dict(name=f"{mask.name}_block", route="cuda", source=VNTK_SOURCE,
+                 replaces=mask.replaces, launches=launches["mask"],
+                 max_abs_err=mask.max_abs_err, ms=float(ms),
+                 plain_ms=float(plain_ms), bound_ms=float(bound),
+                 bound_by="bytes", library_ms=None, path="block")]
+    member = store.member(0)
+    slabs = {True: CompressedSlab.from_store(store),
+             False: CompressedSlab.from_matrix(member)}
     tcids = cuda_ints(np.repeat(np.arange(K), -(-nb // K))[:nb])
-    for level in (0, 1):
-        b = store.bmax_for_step(level)
-        if kv.topk_path(b) != "block":
-            raise AssertionError(f"level {level}: bmax {b} takes the warp "
-                                 "route")
-        if level == 0:
-            lnodes = torch.ones(nb, dtype=torch.int32, device="cuda")
-        else:  # a level-1 node of each row's member: a child of its root
-            k = tcids.long()
-            root = rp[:, 1:3].cpu().numpy()[k.cpu().numpy()]
-            slot = cuda_ints(rng.integers(root[:, 0], root[:, 1])).long()
-            lnodes = edges[k, slot, 1].contiguous()
-        values = make_values(rng, nb, V, False)
-        topk.compare(f"level {level}", values, lnodes, tcids, (rp, edges), b,
-                     V, C)
-        topk.time(values, lnodes, tcids, (rp, edges), b, V, C)
-    rows = []
-    for chk, n in ((mask, launches["mask"]), (topk, launches["topk"])):
+    for name in TOPK_NAMES:
+        chk = KernelCheck(name)
+        st, sl = (store, slabs[True]) if chk.stacked else (member,
+                                                           slabs[False])
+        n = nb if chk.stacked else 2 * M
+        for level in (0, 1):
+            b = st.bmax_for_step(level)
+            if kv.topk_path(b) != "block":
+                raise AssertionError(f"level {level}: bmax {b} takes the "
+                                     "warp route")
+            srp, sedges = st.row_pointers, st.edges
+            if chk.stacked:
+                k = tcids.long()
+                row_cids = tcids
+            else:
+                k = torch.zeros(n, dtype=torch.long, device="cuda")
+                row_cids = None
+                srp, sedges = srp[None], sedges[None]
+            if level == 0:
+                lnodes = torch.ones(n, dtype=torch.int32, device="cuda")
+            else:  # a level-1 node of each row's member: a child of its root
+                root = srp[:, 1:3].cpu().numpy()[k.cpu().numpy()]
+                slot = cuda_ints(rng.integers(root[:, 0], root[:, 1])).long()
+                lnodes = sedges[k, slot, 1].contiguous()
+            values = make_values(rng, n, V, chk.fused)
+            pairs = (st.row_pointers, st.edges)
+            tables = ((st.row_pointers, sl.tok_delta, sl.base_for_step(level))
+                      if chk.compressed else pairs)
+            if chk.compressed:
+                chk.compare_twin(f"level {level}", values, lnodes, row_cids,
+                                 tables, pairs, b, V, C)
+            else:
+                chk.compare(f"level {level}", values, lnodes, row_cids,
+                            tables, b, V, C)
+            chk.time(values, lnodes, row_cids, tables, b, V, C)
+            chk.time_reread(values, lnodes, row_cids, tables, b, V, C)
         ms, plain_ms, bound = np.mean(chk.times, axis=0)
-        log(f"  {chk.name} block route: equal to plain; {ms * 1e3:.2f} us "
-            f"(plain {plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us) per "
-            f"launch at nb {nb}, bmax {bmax if chk is mask else 'of levels 0-1'}"
-            f"; {n} launches in this phase's runs")
+        reread = float(np.mean(chk.reread))
+        log(f"  {name} block route: equal to plain; {ms * 1e3:.2f} us staged, "
+            f"{reread * 1e3:.2f} us re-read (plain {plain_ms * 1e3:.2f} us, "
+            f"bound {bound * 1e3:.3f} us) per launch at nb {n}, levels 0-1 "
+            f"(bmax {st.bmax_for_step(0)}/{st.bmax_for_step(1)}); "
+            f"{block[name]} block-route launches in this phase's runs")
         rows.append(dict(
-            name=f"{chk.name}_block", route="cuda", source=VNTK_SOURCE,
-            replaces=chk.replaces, launches=n, max_abs_err=chk.max_abs_err,
-            ms=float(ms), plain_ms=float(plain_ms), bound_ms=float(bound),
-            bound_by="bytes", library_ms=None, path="block"))
+            name=f"{name}_block", route="cuda", source=VNTK_SOURCE,
+            replaces=chk.replaces, launches=block[name],
+            max_abs_err=chk.max_abs_err, ms=float(ms),
+            plain_ms=float(plain_ms), bound_ms=float(bound),
+            bound_by="bytes", library_ms=None, path="block",
+            reread_ms=reread))
     return rows
 
 
@@ -2421,7 +2777,9 @@ def phase_continuous(args, params, cfg, idx):
                      for s in range(L))
     out = dict(registry_build_s=build_s, store_gb=store.nbytes() / 1e9,
                level_bmax=list(store.level_bmax))
-    launches = dict(mask=0, topk=0)
+    launches = dict(mask=0)
+    block = {k: 0 for k in kv.BLOCK_LAUNCHES}  # the block route's launches
+    wide = dict(block)  # those of its 1,024-thread instantiation
 
     def run_batch(prompts, lanes):
         q = RequestQueue()
@@ -2431,9 +2789,12 @@ def phase_continuous(args, params, cfg, idx):
             batch, q, lambda r: only("vntk_stacked_topk",
                                      r["vntk_stacked_topk"]))
         n = batch.metrics.counter("serving_batches_total").total() - n0
-        if rose["vntk_stacked_topk"] != L * n:
-            raise AssertionError(f"batch engine: {rose} over {n} batches")
-        launches["topk"] += topk_block * int(n)
+        on_block = kv.BLOCK_LAUNCHES["vntk_stacked_topk"]  # this serve's
+        if rose["vntk_stacked_topk"] != L * n or on_block != topk_block * n:
+            raise AssertionError(f"batch engine: {rose}, {on_block} on the "
+                                 f"block route, over {n} batches")
+        block["vntk_stacked_topk"] += on_block
+        wide["vntk_stacked_topk"] += kv.WIDE_LAUNCHES["vntk_stacked_topk"]
         check_results("batch engine", res, rids, sets)
         return res, dt, int(n)
 
@@ -2610,11 +2971,13 @@ def phase_continuous(args, params, cfg, idx):
         "compliant with its version")
     del eng, clock, retr_h, reg_h, store_h
 
-    rows = block_rows(rng, store, nodes, cids, M, launches)
+    out["block_route"] = block_retrieves(rng, params, cfg, store, sets, M,
+                                         block, wide)
+    rows = block_rows(rng, store, nodes, cids, M, launches, block)
     if launches["mask"] == 0:
         raise AssertionError("the stacked mask kernel never launched")
-    out["launches"] = launches
-    return out, rows
+    out["launches"] = dict(launches, block_route=block, wide_block=wide)
+    return out, rows, block, wide
 
 # ---------------------------------------------------------------------------
 # phase 8: the paper's Table 1 baselines (§5.2) beside STATIC
@@ -4677,6 +5040,8 @@ def main() -> int:
                           [c for c in checks.values() if c.stacked],
                           full_size=args.constraints is None)
     del idx["store_slab"]  # the stacked policies build their own
+    block_checks = phase_block_route(
+        np.random.default_rng([args.seed, 26]), M)  # later phases unmoved
     phase_golden()
     phase_attention(rng)
 
@@ -4721,7 +5086,7 @@ def main() -> int:
     log("phase 7: continuous batching over the level-free mask")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    cont, cont_rows = phase_continuous(args, params, cfg, idx)
+    cont, cont_rows, block, wide = phase_continuous(args, params, cfg, idx)
     cont["seconds"] = time.time() - t0
     peaks.append(torch.cuda.max_memory_allocated())
     cont["peak_gb"] = peaks[-1] / 1e9
@@ -4823,6 +5188,16 @@ def main() -> int:
             plain_ms=float(plain_ms), bound_ms=float(bound), bound_by="bytes",
             library_ms=None, path=chk.main_path()))
     rows += cont_rows
+    # the V = 32,768 root row, on the 1,024-thread instantiation: launches
+    # are that instantiation's on the main path (phase 7)
+    for name, chk in block_checks.items():
+        ms, plain_ms, bound = chk.times[0]
+        rows.append(dict(
+            name=f"{name}_block_v{BLOCK_TIMED_V}", route="cuda",
+            source=VNTK_SOURCE, replaces=chk.replaces, launches=wide[name],
+            max_abs_err=chk.max_abs_err, ms=float(ms),
+            plain_ms=float(plain_ms), bound_ms=float(bound), bound_by="bytes",
+            library_ms=None, path="block", reread_ms=float(chk.reread[0])))
     rows += bag_report(bag_rows + fm_rows, bag_launches)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

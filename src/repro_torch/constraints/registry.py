@@ -480,27 +480,11 @@ class ConstraintRegistry:
                     return self._version
             t0 = time.monotonic()
             fire("refresh.build")
-            added = delta.added
-            # stage every slot against the original sources (stage_delta
-            # never mutates retained state), validate the whole batch
-            # against the envelope, and only then commit
-            adds = []
-            for name in names:
-                add_sids = None
-                if added is not None and added.sids.shape[0]:
-                    add_sids = added.sids[self._eval_predicate(name, added)]
-                adds.append(add_sids)
-            with ThreadPoolExecutor(min(BUILD_THREADS, len(names))) as pool:
-                staged = list(pool.map(
-                    lambda i: self._sources[i].stage_delta(
-                        adds[i], delta.removed_sids), range(len(names))))
-            if all(st is None for st in staged):
+            staged, mats = self._stage_delta(delta, names)
+            if mats is None:
                 self._m_swaps.inc(kind="delta", cold="noop")
                 with self._lock:
                     return self._version
-            mats = [self._mats[i] if st is None  # untouched slot
-                    else TransitionMatrix.from_flat_trie(st[0], device="cpu")
-                    for i, st in enumerate(staged)]
             t1 = time.monotonic()
             back, cold = self._fit_or_regrow(front, mats, on_overflow)
             _settle(back)
@@ -521,6 +505,45 @@ class ConstraintRegistry:
             self._m_swaps.inc(kind="delta", cold="true" if cold else "false")
             self._record_store(back, version, names)
             return version
+
+    def _stage_delta(self, delta: CatalogDelta, names: list[str]):
+        """Stage every slot against the retained sources (``stage_delta``
+        never mutates them): ``(staged, host matrices)``, a slot the delta
+        leaves alone keeping its matrix; ``(staged, None)`` when no slot
+        changes.  The caller validates the batch against the envelope and
+        only then commits."""
+        added = delta.added
+        adds = []
+        for name in names:
+            add_sids = None
+            if added is not None and added.sids.shape[0]:
+                add_sids = added.sids[self._eval_predicate(name, added)]
+            adds.append(add_sids)
+        with ThreadPoolExecutor(min(BUILD_THREADS, len(names))) as pool:
+            staged = list(pool.map(
+                lambda i: self._sources[i].stage_delta(
+                    adds[i], delta.removed_sids), range(len(names))))
+        if all(st is None for st in staged):
+            return staged, None
+        return staged, [
+            self._mats[i] if st is None  # untouched slot
+            else TransitionMatrix.from_flat_trie(st[0], device="cpu")
+            for i, st in enumerate(staged)]
+
+    def assemble_delta(self, delta: CatalogDelta):
+        """The host half of :meth:`swap_delta`, committing nothing: every
+        slot's matrix with ``delta`` spliced in, on the host (``None`` when
+        the delta changes no slot).  ``store.with_members`` of the result
+        is the upload half; neither touches the live store or the retained
+        sources."""
+        with self._refresh_lock:
+            with self._lock:
+                if self._front is None:
+                    raise RuntimeError("assemble_delta() before build()")
+                names = list(self._names)
+            if delta.is_empty:
+                return None
+            return self._stage_delta(delta, names)[1]
 
     def current(self) -> tuple[ConstraintStore, int]:
         """The live (store, version) pair; atomic with respect to swaps."""

@@ -282,20 +282,52 @@ def _stack(mats, n_states: int, n_edges: int, device) -> dict:
     return out
 
 
+# Host tables cross to the card through two pinned staging buffers of this
+# many bytes each: the host fills one while the other's copy runs.
+_STAGE_BYTES = 64 << 20
+
+
+def _upload(out: torch.Tensor, a: torch.Tensor) -> None:
+    """``out.copy_(a)``, ``out`` contiguous on the card and ``a`` on the
+    host: chunk by chunk through two pinned staging buffers (converted to
+    ``out``'s dtype on the host), each chunk's copy ``non_blocking`` on the
+    current stream.  The host refills a buffer only after the event of its
+    last copy, so it waits on its own copies, never on the device as a
+    whole, and makes no pageable copy: pageable copies of a store's tables
+    stalled the serving rounds that met them several-fold on the card."""
+    src, dst = a.reshape(-1), out.view(-1)
+    n, stream = src.numel(), torch.cuda.current_stream(out.device)
+    step = max(1, _STAGE_BYTES // out.element_size())
+    bufs = [torch.empty(min(step, n), dtype=out.dtype, pin_memory=True)
+            for _ in range(min(2, -(-n // step)))]
+    copied = [None] * len(bufs)
+    for i, off in enumerate(range(0, n, step)):
+        b, m = i % len(bufs), min(step, n - off)
+        if copied[b] is not None:
+            copied[b].synchronize()
+        bufs[b][:m].copy_(src[off:off + m])
+        dst[off:off + m].copy_(bufs[b][:m], non_blocking=True)
+        copied[b] = torch.cuda.Event()
+        copied[b].record(stream)
+
+
 def _pad_member(tm: TransitionMatrix, name: str, n_states: int, n_edges: int,
                 out: torch.Tensor) -> None:
     """Write one member table, padded to the envelope, into ``out``.
 
     A member on another device (a registry keeps its matrices on the host)
-    is copied straight into ``out``, with no temporary on ``out``'s device.
+    is copied straight into ``out``, with no temporary on ``out``'s device;
+    from the host to the card through pinned staging (:func:`_upload`).
     """
     a = getattr(tm, name)
+    staged = a.device.type == "cpu" and out.device.type == "cuda"
+    copy = _upload if staged else torch.Tensor.copy_
     if name == "row_pointers":
         # padded states get empty CSR rows: repeat the final pointer
-        out[: tm.n_states + 1].copy_(a[: tm.n_states + 1])
+        copy(out[: tm.n_states + 1], a[: tm.n_states + 1])
         out[tm.n_states + 1:] = out[tm.n_states]
     elif name == "edges":
-        out[: a.shape[0]].copy_(a)
+        copy(out[: a.shape[0]], a)
         out[a.shape[0]:] = 0
     else:  # dense tables are fixed-shape given (V, dense_d)
-        out.copy_(a)
+        copy(out, a)

@@ -42,9 +42,11 @@
 // a block-wide inclusive prefix sum of the int32-cast deltas (warp shuffles,
 // block_scan) over chunks of one slot a thread with a running carry, or for
 // rows of <= 32 slots one warp's scan (warp_scan).  The topk block kernel
-// writes the decoded slots into the shared arrays it stages anyway; the
-// mask kernel scatters each chunk as it is decoded, so a root row of any
-// width needs no extra shared memory.  The reference decodes the whole burst
+// decodes a run of consecutive slots a warp, a warp scan a chunk of 32,
+// after one barrier that gives each run the sum of the runs before it, so
+// each run re-walks its tokens with no barrier; the mask kernel scatters
+// each chunk as it is decoded, so a root row of any width needs no extra
+// shared memory.  The reference decodes the whole burst
 // and masks what lies past the row end; slots past n_child are not read here
 // at all, with the same outputs.  A member's delta row starts k *
 // edge_stride elements in, computed in int64 (ten 20M-SID members hold about
@@ -74,11 +76,21 @@
 //     top-C selection is in closed form (ballots and shuffles, no
 //     O((bmax + C)^2) rank).  Bounded by the chain of dependent loads and
 //     the launch.
-//   * bmax > 32 (a root row, the stress shapes): a block per beam row
-//     (vntk_topk_kernel), the candidates staged in shared memory and ranked
-//     by counting, rank[j] = #{j' : key[j'] > key[j] or (key[j'] == key[j]
-//     and j' < j)}: O((bmax + C)^2 / 256) per thread, bounded by that and
-//     the block's barriers.
+//   * bmax > 32 (a root row, levels 0-1 of a dense_d=0 store, any level
+//     with one wide node): a block per beam row (vntk_topk_kernel; 256
+//     threads, 1024 past 8192 slots), O(n_real) work: the padding and
+//     missing candidates take closed-form ranks, and only the real slots
+//     are selected, by a radix select over order-preserving unsigned keys
+//     (8 bits a pass, one barrier each, stopping as soon as the threshold's
+//     bin holds exactly the slots still needed), then the <= C winners are
+//     ranked among themselves.  The keys are staged in shared memory at 4
+//     bytes a slot while they fit (~56k slots beside the kernel's static
+//     arrays); wider rows re-read them from the CSR row and the logit row
+//     (both in L2) in each pass, so no row width is refused.  Where both
+//     work, staging is the faster (vntk_topk_reread forces re-reading, to
+//     check and time that path at any width).  The fused
+//     row's log-sum-exp is one pass (block_row_lse).  Bounded by the chase,
+//     the passes' barriers and, on wide rows, the re-reads.
 // Both keep the same order: key descending, then candidate index, which is
 // the dense path's flat-index order (slots are token-ascending), on which
 // bit-identity rests (DESIGN.md §8).  Only slots below n_child are read, so
@@ -108,36 +120,12 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kWarpBmax = 32;  // rows of at most this many slots: one warp
 constexpr int kLseBatch = 16;  // float4 loads in flight per lane, warp route
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf = -1.0e10f;  // NEG_INF of core/vntk.py
 constexpr float kMinF = -FLT_MAX;    // jnp.finfo(float32).min
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = lane < kWarps ? red[lane] : -INFINITY;
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();  // red is reused by the next reduction
-  return v;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  v = lane < kWarps ? red[lane] : 0.f;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  return v;
-}
 
 // Block-wide inclusive prefix sum of one int per thread, in thread order:
 // a shuffle scan in each warp, then one over the warps' totals.  `total`
@@ -167,29 +155,6 @@ __device__ __forceinline__ int block_scan(int v, int* part, int& total) {
   __syncthreads();  // part is reused by the next chunk
   return v;
 }
-
-// Row statistics of the in-register log-softmax (kernels/vntk.py:276-279):
-// lp = (x - m) - log(sum(exp(x - m))).  Without FUSED the row already holds
-// normalized log-probs and is used as it is.
-template <bool FUSED>
-struct RowLogProb {
-  const float* x;
-  float m = 0.f, lse = 0.f;
-
-  __device__ RowLogProb(const float* row, int V, float* red) : x(row) {
-    if (!FUSED) return;
-    float v = -INFINITY;
-    for (int i = threadIdx.x; i < V; i += kThreads) v = fmaxf(v, x[i]);
-    m = block_max(v, red);
-    float s = 0.f;
-    for (int i = threadIdx.x; i < V; i += kThreads) s += expf(x[i] - m);
-    lse = logf(block_sum(s, red));
-  }
-
-  __device__ __forceinline__ float operator()(int col) const {
-    return FUSED ? (x[col] - m) - lse : x[col];
-  }
-};
 
 // A delta slab's token deltas, or the raw (token, next) pairs.
 template <typename Edge>
@@ -245,91 +210,6 @@ __device__ __forceinline__ void for_each_delta_slot(
     const int tok = carry + block_scan<THREADS>(d, part, total);
     if (j < n_real) slot(j, tok, start + j + mem.base);
     carry += total;
-  }
-}
-
-// One block per beam row: per-beam dense-rank top-`width` of the CSR row of
-// nodes[row] — valid children by (lp desc, token asc), then the first
-// missing tokens at NEG_INF; slots that do not exist sink to -FLT_MAX.
-template <bool FUSED, bool STACKED, typename Edge>
-__global__ void __launch_bounds__(kThreads) vntk_topk_kernel(
-    const float* __restrict__ values, int64_t ld, const int* __restrict__ nodes,
-    Tables t, int V, int bmax, int width, float* __restrict__ out_sc,
-    int* __restrict__ out_tok, int* __restrict__ out_next) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[kWarps];
-  __shared__ int part[kWarps];
-  const int J = bmax + width;
-  float* keys = reinterpret_cast<float*>(smem);
-  int* toks = reinterpret_cast<int*>(keys + J);
-  int* nexts = toks + J;
-
-  const int row = blockIdx.x;
-  const RowLogProb<FUSED> lp(values + row * ld, V, red);
-  const Member<STACKED, Edge> mem(t, row);
-  const int node = nodes[row];
-  const int start = mem.rp[node];
-  const int n_child = mem.rp[node + 1] - start;
-  const int n_real = max(0, min(n_child, bmax));
-
-  // candidate slots of the CSR row (token-ascending)
-  if constexpr (kDelta<Edge>) {
-    for_each_delta_slot<kThreads>(mem, start, n_real, part,
-                                  [&](int j, int tok, int nx) {
-      keys[j] = lp(min(max(tok, 0), V - 1));
-      toks[j] = tok;
-      nexts[j] = nx;
-    });
-    for (int j = n_real + threadIdx.x; j < bmax; j += kThreads) {
-      keys[j] = kMinF;
-      toks[j] = 0;
-      nexts[j] = 0;
-    }
-  } else {
-    for (int j = threadIdx.x; j < bmax; j += kThreads) {
-      if (j < n_real) {
-        const int2 e = mem.edges[start + j];
-        keys[j] = lp(min(max(e.x, 0), V - 1));
-        toks[j] = e.x;
-        nexts[j] = e.y;
-      } else {
-        keys[j] = kMinF;
-        toks[j] = 0;
-        nexts[j] = 0;
-      }
-    }
-  }
-  __syncthreads();
-
-  // the i-th missing token: i + |{j : cols[j] - j <= i}| (core/vntk.py:219-226)
-  for (int i = threadIdx.x; i < width; i += kThreads) {
-    int cnt = 0;
-    for (int j = 0; j < n_real; ++j) cnt += (toks[j] - j <= i);
-    const int t = i + cnt;
-    const bool in_range = t < V;
-    keys[bmax + i] = in_range ? kNegInf : kMinF;
-    toks[bmax + i] = in_range ? t : 0;
-    nexts[bmax + i] = 0;
-  }
-  __syncthreads();
-
-  // rank by counting; ranks are a permutation of [0, J), so each of the
-  // `width` output lanes is written exactly once
-  float* sc = out_sc + static_cast<int64_t>(row) * width;
-  int* tk = out_tok + static_cast<int64_t>(row) * width;
-  int* nx = out_next + static_cast<int64_t>(row) * width;
-  for (int j = threadIdx.x; j < J; j += kThreads) {
-    const float k = keys[j];
-    int rank = 0;
-    for (int q = 0; q < J; ++q) {
-      const float kq = keys[q];
-      rank += (kq > k) || (kq == k && q < j);
-    }
-    if (rank < width) {
-      sc[rank] = k;
-      tk[rank] = toks[j];
-      nx[rank] = nexts[j];
-    }
   }
 }
 
@@ -534,6 +414,453 @@ __global__ void __launch_bounds__(32) vntk_topk_warp_kernel(
     sc[rank] = key;
     tk[rank] = tok;
     nxo[rank] = nx;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The block route: a block of THREADS per beam row, for rows of more than
+// kWarpBmax slots: 256 threads, or 1024 for rows of more than kWideBmax
+// slots, whose keys fill most of an SM's shared memory, so that the block
+// holding it alone walks 4x fewer slots a thread.
+
+constexpr int kBlockThreads = 256;
+constexpr int kWideThreads = 1024;
+constexpr int kWideBmax = 8192;
+constexpr int kBins = 256;          // a radix digit of 8 bits a pass
+constexpr int kRound = 256;         // winners ranked a round: one a thread
+constexpr int kWalk = 8;            // slots a thread loads at once in a walk
+constexpr int kBlockLseBatch = 4;   // float4 loads in flight per thread
+
+// A float key mapped to an unsigned of the same order, so that u > u' iff
+// the key comes first in (key desc) order: -0 takes +0's value and every
+// NaN the largest, as the plain version's stable sort ranks them.
+__device__ __forceinline__ unsigned order_key(float k) {
+  if (isnan(k)) return 0xffffffffu;
+  unsigned u = __float_as_uint(k);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// A row's (max m, log of the sum of exp(x - m)) in one pass over memory by
+// the whole block: thread t folds float4s t, t + THREADS, ... into an
+// online pair, kBlockLseBatch loads at once (m rises to the batch's max, s
+// scaled by exp(m_old - m_new), then s adds the batch's exp(x - m)); each
+// warp merges its pairs as WarpRowLse does (the max by one redux, each s
+// scaled to it, one butterfly sum) and, after one barrier, every thread
+// merges the warps' pairs in warp order.  m starts at -FLT_MAX, so a -inf
+// logit adds 0, never NaN.  A row that is not 16-byte aligned, or V % 4 !=
+// 0, is read by scalar loads into the same pairs.  (0, 0) and no barrier
+// without FUSED.
+template <bool FUSED, int THREADS>
+__device__ __forceinline__ float2 block_row_lse(const float* x, int V,
+                                                float2* red) {
+  if constexpr (!FUSED) {
+    return make_float2(0.f, 0.f);
+  } else {
+    float m = kMinF, s = 0.f;
+    if ((V & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+      const float4* x4 = reinterpret_cast<const float4*>(x);
+      const int n4 = V >> 2;
+      for (int b = threadIdx.x; b < n4; b += THREADS * kBlockLseBatch) {
+        float4 v[kBlockLseBatch];
+#pragma unroll
+        for (int u = 0; u < kBlockLseBatch; ++u) {
+          const int k = b + THREADS * u;
+          v[u] = k < n4 ? __ldg(x4 + k)
+                        : make_float4(-INFINITY, -INFINITY, -INFINITY,
+                                      -INFINITY);
+        }
+        float r = kMinF;
+#pragma unroll
+        for (int u = 0; u < kBlockLseBatch; ++u)
+          r = fmaxf(r, fmaxf(fmaxf(v[u].x, v[u].y), fmaxf(v[u].z, v[u].w)));
+        if (r > m) {
+          s *= exp_le0(m - r);
+          m = r;
+        }
+        float e = 0.f;
+#pragma unroll
+        for (int u = 0; u < kBlockLseBatch; ++u)
+          e += (exp_le0(v[u].x - m) + exp_le0(v[u].y - m)) +
+               (exp_le0(v[u].z - m) + exp_le0(v[u].w - m));
+        s += e;
+      }
+    } else {
+      for (int i = threadIdx.x; i < V; i += THREADS) {
+        const float xi = __ldg(x + i);
+        if (xi > m) {
+          s = s * exp_le0(m - xi) + 1.f;
+          m = xi;
+        } else {
+          s += exp_le0(xi - m);
+        }
+      }
+    }
+    const float mr = warp_max(m);
+    const float sr = warp_sum(s * exp_le0(m - mr));
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = make_float2(mr, sr);
+    __syncthreads();
+    float M = red[0].x;
+#pragma unroll
+    for (int q = 1; q < THREADS / 32; ++q) M = fmaxf(M, red[q].x);
+    float S = 0.f;
+#pragma unroll
+    for (int q = 0; q < THREADS / 32; ++q)
+      S += red[q].y * exp_le0(red[q].x - M);
+    return make_float2(M, logf(S));
+  }
+}
+
+// The digit of the k-th largest key counted in a histogram of kBins, the
+// same on every warp: lane l sums bins 8l..8l+7 (read rotated: no bank
+// conflict), a suffix scan over the lanes finds the lane whose bins hold
+// it, and that lane walks its bins from the top.  `above` receives the
+// keys in higher bins, `cnt` those in the digit's bin.
+__device__ __forceinline__ int find_digit(const unsigned* h, int k, int& above,
+                                          int& cnt) {
+  const int lane = threadIdx.x & 31;
+  int tot = 0;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) tot += h[lane * 8 + ((u + (lane >> 2)) & 7)];
+  int suf = tot;  // the bins of lanes >= lane
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_down_sync(kFull, suf, o);
+    if (lane + o < 32) suf += n;
+  }
+  const int hi = suf - tot;  // the bins of lanes > lane
+  const unsigned who = __ballot_sync(kFull, suf >= k && hi < k);
+  const int l = who ? __ffs(who) - 1 : 0;
+  int b = 0, a = hi, c = 0;
+  if (lane == l) {
+    for (int u = 7; u >= 0; --u) {
+      const int v = h[lane * 8 + u];
+      if (a + v >= k) {
+        b = lane * 8 + u;
+        c = v;
+        break;
+      }
+      a += v;
+    }
+  }
+  above = __shfl_sync(kFull, a, l);
+  cnt = __shfl_sync(kFull, c, l);
+  return __shfl_sync(kFull, b, l);
+}
+
+// The CSR row a block selects from: member `mem`'s row at `start`, its
+// n_real slots, and the key of a column (the log-prob: (x - m) - lse when
+// FUSED).  Int2 pairs are walked strided (slot j by thread j % THREADS:
+// the loads coalesce); delta slots in one run of consecutive slots a warp,
+// warp w on [lo, hi) with `carry` the token of slot lo - 1 (the sum of the
+// deltas before lo: each warp sums its run, then one barrier), lane l on
+// slots lo + l, lo + 32 + l, ..., so the warp decodes its tokens alone (a
+// warp scan a chunk of 32), its loads and the tokens' gathers coalesce, and
+// it re-walks them with no barrier.  walk<X, PREV>(fn) calls fn(j, tok,
+// next, key, prev) for this thread's slots, kWalk loads at once: key when X
+// (else 0), prev the token of slot j - 1 when PREV (-1 before slot 0).
+template <bool FUSED, bool STACKED, typename Edge, int THREADS>
+struct BlockRow {
+  const float* x;
+  int V;
+  float m, lse;
+  const Member<STACKED, Edge>& mem;
+  int start, n_real;
+  int lo = 0, hi = 0, carry = 0;
+
+  __device__ __forceinline__ float key(float xv) const {
+    return FUSED ? (xv - m) - lse : xv;
+  }
+  __device__ __forceinline__ float logit(int tok) const {
+    return __ldg(x + min(max(tok, 0), V - 1));
+  }
+
+  // delta: this warp's run and its carry, `total` the row's delta sum (the
+  // token of slot n_real - 1); every thread must call it
+  __device__ __forceinline__ void runs(int* part, int& total) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    constexpr int kW = THREADS / 32;
+    const int per = (n_real + kW - 1) / kW;
+    lo = min(warp * per, n_real);
+    hi = min(lo + per, n_real);
+    int sum = 0;
+    for (int c0 = lo + lane; c0 < hi; c0 += 32 * kWalk) {
+#pragma unroll
+      for (int u = 0; u < kWalk; ++u) {
+        const int j = c0 + 32 * u;
+        sum += j < hi ? static_cast<int>(mem.edges[start + j]) : 0;
+      }
+    }
+    sum = __reduce_add_sync(kFull, sum);
+    if (lane == 0) part[warp] = sum;
+    __syncthreads();
+    carry = total = 0;
+#pragma unroll
+    for (int q = 0; q < kW; ++q) {
+      carry += q < warp ? part[q] : 0;
+      total += part[q];
+    }
+  }
+
+  template <bool X, bool PREV, typename Fn>
+  __device__ __forceinline__ void walk(Fn fn) const {
+    if constexpr (kDelta<Edge>) {
+      const int lane = threadIdx.x & 31;
+      int tok = carry;  // the token before the chunk, on every lane
+      for (int c0 = lo; c0 < hi; c0 += 32 * kWalk) {  // the same on a warp
+        int d[kWalk], tk[kWalk];
+#pragma unroll
+        for (int u = 0; u < kWalk; ++u) {
+          const int j = c0 + 32 * u + lane;
+          d[u] = j < hi ? static_cast<int>(mem.edges[start + j]) : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < kWalk; ++u) {
+          const int incl = warp_scan(d[u]);
+          tk[u] = tok + incl;
+          tok += __shfl_sync(kFull, incl, 31);
+        }
+        float xv[kWalk];
+#pragma unroll
+        for (int u = 0; u < kWalk; ++u)
+          xv[u] = X && c0 + 32 * u + lane < hi ? logit(tk[u]) : 0.f;
+#pragma unroll
+        for (int u = 0; u < kWalk; ++u) {
+          const int j = c0 + 32 * u + lane;
+          if (j < hi)
+            fn(j, tk[u], start + j + mem.base, key(xv[u]),
+               j == 0 ? -1 : tk[u] - d[u]);
+        }
+      }
+    } else {
+      for (int j0 = threadIdx.x; j0 < n_real; j0 += THREADS * kWalk) {
+        int2 e[kWalk];
+        int pv[kWalk];
+#pragma unroll
+        for (int u = 0; u < kWalk; ++u) {
+          const int j = j0 + THREADS * u;
+          e[u] = j < n_real ? mem.edges[start + j] : make_int2(0, 0);
+          pv[u] = PREV && j < n_real && j > 0 ? mem.edges[start + j - 1].x
+                                              : -1;
+        }
+        float xv[kWalk];
+#pragma unroll
+        for (int u = 0; u < kWalk; ++u)
+          xv[u] = X && j0 + THREADS * u < n_real ? logit(e[u].x) : 0.f;
+#pragma unroll
+        for (int u = 0; u < kWalk; ++u)
+          if (j0 + THREADS * u < n_real)
+            fn(j0 + THREADS * u, e[u].x, e[u].y, key(xv[u]), pv[u]);
+      }
+    }
+  }
+};
+
+// One block per beam row, for rows of more than kWarpBmax slots: the same
+// function as vntk_topk_warp_kernel.  The candidates are the row's n_real
+// real slots (R), the padding slots [n_real, bmax) at -FLT_MAX (P), and the
+// missing tokens: the first n_in = min(width, V - n_real) in range at
+// NEG_INF (Mi), the rest at -FLT_MAX (Mo); in (key desc, index asc) order
+// only R needs a selection, and the rest take closed-form ranks:
+//   1. the chase's head; (FUSED) the row's log-sum-exp in one pass
+//      (block_row_lse); delta slots: each warp's run summed, one barrier;
+//   2. pass 0 maps each real slot's key to order_key (staged in shared
+//      memory, 4 bytes a slot, when `staged`), counts the keys at >=
+//      NEG_INF (c_neg) and >= -FLT_MAX (c_min), and histograms the top
+//      digit;
+//   3. P, Mo and the needed Mi are written in closed form: padding slot p
+//      at rank c_min + n_in + p, missing candidate i at c_neg + i (Mi) or
+//      c_min + n_pad + i (Mo).  Mi's token is i + cnt(i), cnt(i) = |{j :
+//      tok_j - j <= i}|: g_j = tok_j - j is non-decreasing along a row
+//      (its tokens are sorted and distinct), so slot j owns the i in
+//      [g_{j-1}, g_j), whose token is i + j, and the tail i >= g_{n_real-1}
+//      takes i + n_real; only i < width - c_neg are written;
+//   4. R's top min(width, n_real) by a radix select on the composite
+//      (order key, inverted slot index), unique per slot: 8 bits a pass,
+//      each pass a histogram of the slots that match the digits chosen so
+//      far, one barrier, and the digit found by every warp alike; it stops
+//      as soon as the digit's bin holds exactly the slots still needed.
+//      The slots at or above the threshold are gathered (tokens and next
+//      states by slot index; a delta run re-walks its tokens), ranked among
+//      themselves by counting, and written at rank + n_in below NEG_INF +
+//      (n_pad + width - n_in) below -FLT_MAX.  Past kRound winners the
+//      selection repeats, a round of kRound ranks at a time;
+//   5. without staging (bmax past the shared memory a block has) each pass
+//      re-reads the keys from the CSR row and the logit row, both in L2.
+// Scores are the keys re-read at the winners' tokens, bit for bit.  Ranks
+// are a permutation of [0, bmax + width): each output is written once.
+template <bool FUSED, bool STACKED, typename Edge, int THREADS>
+__global__ void __launch_bounds__(THREADS) vntk_topk_kernel(
+    const float* __restrict__ values, int64_t ld, const int* __restrict__ nodes,
+    Tables t, int V, int bmax, int width, int staged,
+    float* __restrict__ out_sc, int* __restrict__ out_tok,
+    int* __restrict__ out_next) {
+  extern __shared__ unsigned skey[];  // staged: slot j's order key
+  __shared__ unsigned hist[3][kBins];
+  __shared__ float2 red[THREADS / 32];
+  __shared__ int part[THREADS / 32];
+  __shared__ int count[3];  // real slots at >= NEG_INF, >= -FLT_MAX; winners
+  __shared__ unsigned wkey[kRound];
+  __shared__ int wslot[kRound], wtok[kRound], wnext[kRound];
+  const int tid = threadIdx.x;
+  const int row = blockIdx.x;
+
+  // 1. the chase's head, the cleared counts, the row's fold
+  const int node = nodes[row];
+  const Member<STACKED, Edge> mem(t, row);
+  const float* x = values + row * ld;
+  unsigned* const hflat = &hist[0][0];
+  for (int i = tid; i < 3 * kBins; i += THREADS) hflat[i] = 0u;
+  if (tid < 3) count[tid] = 0;
+  const int start = mem.rp[node];
+  const int n_real = max(0, min(mem.rp[node + 1] - start, bmax));
+  const float2 lse = block_row_lse<FUSED, THREADS>(x, V, red);
+  BlockRow<FUSED, STACKED, Edge, THREADS> r{x,   V,     lse.x, lse.y,
+                                           mem, start, n_real};
+  int last_tok;  // the token of slot n_real - 1
+  if constexpr (kDelta<Edge>) {
+    r.runs(part, last_tok);
+  } else {
+    last_tok = n_real > 0 ? mem.edges[start + n_real - 1].x : -1;
+    if constexpr (!FUSED) __syncthreads();  // the clears
+  }
+
+  // 2. pass 0
+  const unsigned uneg = order_key(kNegInf), umin = order_key(kMinF);
+  int cneg = 0, cmin = 0;
+  r.template walk<true, false>([&](int j, int, int, float key, int) {
+    const unsigned uk = order_key(key);
+    if (staged) skey[j] = uk;
+    atomicAdd(&hist[0][uk >> 24], 1u);
+    cneg += uk >= uneg;
+    cmin += uk >= umin;
+  });
+  if (cneg) atomicAdd(&count[0], cneg);
+  if (cmin) atomicAdd(&count[1], cmin);
+  __syncthreads();
+  const int c_neg = count[0], c_min = count[1];
+
+  // 3. the candidates in closed form
+  float* sc = out_sc + static_cast<int64_t>(row) * width;
+  int* tk = out_tok + static_cast<int64_t>(row) * width;
+  int* nxo = out_next + static_cast<int64_t>(row) * width;
+  const auto put = [&](int rank, float s, int tok, int nx) {
+    sc[rank] = s;
+    tk[rank] = tok;
+    nxo[rank] = nx;
+  };
+  const int n_pad = bmax - n_real;
+  const int n_in = min(width, max(V - n_real, 0));
+  for (int p = tid; p < min(n_pad, width - c_min - n_in); p += THREADS)
+    put(c_min + n_in + p, kMinF, 0, 0);
+  for (int i = n_in + tid; i < width - c_min - n_pad; i += THREADS)
+    put(c_min + n_pad + i, kMinF, 0, 0);
+  const int need = max(0, min(n_in, width - c_neg));
+  if (need > 0) {
+    const int g_tail = n_real > 0 ? last_tok - (n_real - 1) : 0;
+    for (int i = max(g_tail, 0) + tid; i < need; i += THREADS)
+      put(c_neg + i, kNegInf, i + n_real, 0);
+    r.template walk<false, true>([&](int j, int tok, int, float, int prev) {
+      const int end = min(tok - j, need);
+      for (int i = max(prev - (j - 1), 0); i < end; ++i)
+        put(c_neg + i, kNegInf, i + j, 0);
+    });
+  }
+
+  // 4. R's top min(width, n_real), kRound ranks a round
+  const int kk = min(width, n_real);
+  int ns = 1;  // bytes of the inverted slot index the composite keeps
+  while (ns < 4 && (bmax - 1) >> (8 * ns)) ++ns;
+  const int D = 4 + ns;  // digits of the composite
+  const uint64_t smask = ns == 4 ? 0xffffffffull : (1ull << (8 * ns)) - 1;
+  const auto comp = [&](int j, unsigned uk) {
+    return (static_cast<uint64_t>(uk) << (8 * ns)) |
+           (~static_cast<uint64_t>(j) & smask);
+  };
+  // fn(j, order key) over this thread's real slots
+  const auto each = [&](auto fn) {
+    if (staged) {
+      for (int j = tid; j < n_real; j += THREADS) fn(j, skey[j]);
+    } else {
+      r.template walk<true, false>(
+          [&](int j, int, int, float key, int) { fn(j, order_key(key)); });
+    }
+  };
+  // the composite of the k-th largest: the slots at or above it are the
+  // top k.  hist0: pass 0's histogram is made (and a barrier passed).
+  const auto select = [&](int k, bool hist0) {
+    uint64_t prefix = 0;
+    for (int p = 0; p < D; ++p) {
+      unsigned* h = hist[p % 3];
+      const int dsh = 8 * (D - 1 - p);
+      if (p > 0 || !hist0) {
+        unsigned* hn = hist[(p + 1) % 3];  // last read two passes ago
+        for (int i = tid; i < kBins; i += THREADS) hn[i] = 0u;
+        each([&](int j, unsigned uk) {
+          const uint64_t c = comp(j, uk);
+          if (p == 0 || (c >> (dsh + 8)) == (prefix >> (dsh + 8)))
+            atomicAdd(&h[(c >> dsh) & (kBins - 1)], 1u);
+        });
+        __syncthreads();
+      }
+      int above, cnt;
+      prefix |= static_cast<uint64_t>(find_digit(h, k, above, cnt)) << dsh;
+      k -= above;
+      if (cnt == k) break;
+    }
+    return prefix;
+  };
+  uint64_t thr_prev = 0;
+  for (int done = 0, k = min(kk, kRound); done < kk;
+       done = k, k = min(kk, k + kRound)) {
+    if (done > 0) {  // the last round's winners are ranked
+      __syncthreads();
+      for (int i = tid; i < 3 * kBins; i += THREADS) hflat[i] = 0u;
+      if (tid == 0) count[2] = 0;
+      __syncthreads();
+    }
+    const uint64_t thr = select(k, done == 0);
+    const auto gather = [&](int j, unsigned uk, int tok, int nx) {
+      const uint64_t c = comp(j, uk);
+      if (c < thr || (done > 0 && c >= thr_prev)) return;
+      const int pos = atomicAdd(&count[2], 1);
+      if (pos >= kRound) return;
+      if constexpr (!kDelta<Edge>) {
+        const int2 e = mem.edges[start + j];
+        tok = e.x;
+        nx = e.y;
+      }
+      wkey[pos] = uk;
+      wslot[pos] = j;
+      wtok[pos] = tok;
+      wnext[pos] = nx;
+    };
+    if constexpr (kDelta<Edge>) {
+      if (staged) {
+        r.template walk<false, false>([&](int j, int tok, int nx, float, int) {
+          gather(j, skey[j], tok, nx);
+        });
+      } else {
+        r.template walk<true, false>([&](int j, int tok, int nx, float key,
+                                         int) {
+          gather(j, order_key(key), tok, nx);
+        });
+      }
+    } else {
+      each([&](int j, unsigned uk) { gather(j, uk, 0, 0); });
+    }
+    __syncthreads();
+    const int nw = k - done;
+    if (tid < nw) {
+      const unsigned uk = wkey[tid];
+      const uint64_t c = comp(wslot[tid], uk);
+      int rank = done;
+      for (int q = 0; q < nw; ++q) rank += comp(wslot[q], wkey[q]) > c;
+      rank += (uk < uneg ? n_in : 0) + (uk < umin ? n_pad + width - n_in : 0);
+      if (rank < width)
+        put(rank, r.key(r.logit(wtok[tid])), wtok[tid], wnext[tid]);
+    }
+    thr_prev = thr;
   }
 }
 
@@ -768,9 +1095,27 @@ cudaError_t prepare_smem(Kernel kernel, size_t smem) {
 
 bool warp_route(int bmax) { return bmax <= kWarpBmax; }
 
-size_t topk_smem_bytes(int bmax, int width) {
-  if (warp_route(bmax)) return 0;
-  return static_cast<size_t>(bmax + width) * (sizeof(float) + 2 * sizeof(int));
+// Set by vntk_topk_reread: block-route launches stage no keys at any width.
+bool g_reread = false;
+
+// Dynamic shared memory of a block-route launch over rows of bmax slots:
+// their keys (4 bytes a slot) when they fit beside the kernel's static
+// arrays, else 0 (the kernel re-reads the keys in each pass).
+template <typename Kernel>
+cudaError_t topk_stage_bytes(Kernel kernel, int bmax, size_t& bytes) {
+  bytes = 0;
+  if (g_reread) return cudaSuccess;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int dev = 0, optin = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const size_t want = static_cast<size_t>(bmax) * sizeof(unsigned);
+  if (want + attr.sharedSizeBytes <= static_cast<size_t>(optin)) bytes = want;
+  return cudaSuccess;
 }
 
 // One launch's rows and outputs: out_sc holds the scores (topk) or the
@@ -786,6 +1131,20 @@ struct Rows {
   cudaStream_t stream;
 };
 
+// The block route's launch: the keys staged when they fit.
+template <bool FUSED, bool STACKED, typename Edge, int THREADS>
+int launch_block(const Rows& r, const Tables& t) {
+  const auto kernel = vntk_topk_kernel<FUSED, STACKED, Edge, THREADS>;
+  size_t smem;
+  cudaError_t err = topk_stage_bytes(kernel, r.bmax, smem);
+  if (err == cudaSuccess) err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<r.nb, THREADS, smem, r.stream>>>(
+      r.values, r.ld, r.nodes, t, r.V, r.bmax, r.width, smem > 0 ? 1 : 0,
+      r.out_sc, r.out_tok, r.out_next);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // bmax <= kWarpBmax: a warp per row; wider rows: a block per row.
 template <bool FUSED, bool STACKED, typename Edge>
 int launch_topk(const Rows& r, const Tables& t) {
@@ -795,14 +1154,9 @@ int launch_topk(const Rows& r, const Tables& t) {
         r.out_next);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = topk_smem_bytes(r.bmax, r.width);
-  const cudaError_t err =
-      prepare_smem(vntk_topk_kernel<FUSED, STACKED, Edge>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  vntk_topk_kernel<FUSED, STACKED, Edge><<<r.nb, kThreads, smem, r.stream>>>(
-      r.values, r.ld, r.nodes, t, r.V, r.bmax, r.width, r.out_sc, r.out_tok,
-      r.out_next);
-  return static_cast<int>(cudaGetLastError());
+  if (r.bmax > kWideBmax)
+    return launch_block<FUSED, STACKED, Edge, kWideThreads>(r, t);
+  return launch_block<FUSED, STACKED, Edge, kBlockThreads>(r, t);
 }
 
 // A block per row either way; bmax <= kWarpBmax: warp 0 holds the slots.
@@ -855,14 +1209,32 @@ Tables single(const int* row_pointers, const void* edges, const int* base) {
 
 extern "C" {
 
-// Shared memory the topk kernel needs for bmax + width candidate keys (none
-// on the warp route).
-size_t vntk_topk_smem_bytes(int bmax, int width) {
-  return topk_smem_bytes(bmax, width);
+// 1 if the block route stages the keys of rows of bmax slots in shared
+// memory, 0 if it re-reads them in each pass, -1 on a CUDA error.
+int vntk_topk_staged(int bmax) {
+  size_t bytes;
+  const cudaError_t err =
+      bmax > kWideBmax
+          ? topk_stage_bytes(vntk_topk_kernel<true, true, int2, kWideThreads>,
+                             bmax, bytes)
+          : topk_stage_bytes(vntk_topk_kernel<true, true, int2, kBlockThreads>,
+                             bmax, bytes);
+  if (err != cudaSuccess) return -1;
+  return bytes > 0 ? 1 : 0;
 }
+
+// Nonzero `on`: the block route re-reads its keys in each pass at every
+// row width, as it does past vntk_topk_staged's limit (to check and time
+// that path at widths that would stage); 0: it stages them while they fit.
+void vntk_topk_reread(int on) { g_reread = on != 0; }
 
 // 1 if rows of bmax slots take the warp route, 0 for the block route.
 int vntk_topk_warp_route(int bmax) { return warp_route(bmax) ? 1 : 0; }
+
+// 1 if rows of bmax slots take the block route's kWideThreads instantiation.
+int vntk_topk_wide_route(int bmax) {
+  return !warp_route(bmax) && bmax > kWideBmax ? 1 : 0;
+}
 
 // 1 if the mask kernel holds rows of bmax slots in one warp's registers, 0
 // if it scatters them chunk by chunk.

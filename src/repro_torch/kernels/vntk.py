@@ -26,21 +26,27 @@ wrapper (fused)                                  replaces (``src/repro/kernels/v
 The topk kernel takes one of two routes by ``bmax`` (:func:`topk_path`): a
 warp per beam row for rows of at most 32 slots, a block per row above; each
 call is one launch either way.  :func:`topk_ranks_closed_form` models the
-warp route's selection on the CPU.  The mask kernel is a block per row on
-both of its routes (:func:`mask_path`): for rows of at most 32 slots one
-warp holds them in its lanes while the others fill the row, above that the
-block scatters them chunk by chunk; :func:`row_lse_model` models its fused
-log-sum-exp on the CPU.
+warp route's selection on the CPU, :func:`topk_radix_select_model` the
+block route's (a radix select with no cap on the row width: the keys are
+staged in shared memory while they fit, :func:`topk_staged`, and re-read
+otherwise, or at every width within :func:`topk_keys_reread`).  The mask kernel is a block per row on both of its routes
+(:func:`mask_path`): for rows of at most 32 slots one warp holds them in
+its lanes while the others fill the row, above that the block scatters them
+chunk by chunk; :func:`row_lse_model` models its fused log-sum-exp on the
+CPU.
 
 A wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, raises on what the kernel does not take, and launches on the
 current stream.  ``LAUNCHES`` counts each function's launches (its key is
-:func:`counter_name`); nothing but a launch moves it.  The plain versions
+:func:`counter_name`), ``BLOCK_LAUNCHES`` the topk functions' launches on
+the block route and ``WIDE_LAUNCHES`` those of its 1,024-thread
+instantiation (rows past 8,192 slots); nothing but a launch moves them.  The plain versions
 (``*_plain``) compute the same functions with torch ops on any device; the
 CPU path and the kernel comparisons use them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -68,15 +74,17 @@ __all__ = ["LAUNCHES", "counter_name", "reset_launches", "vntk_topk_cuda",
            "vntk_stacked_compressed_mask_cuda", "vntk_compressed_topk_plain",
            "vntk_compressed_mask_plain", "vntk_stacked_compressed_topk_plain",
            "vntk_stacked_compressed_mask_plain", "topk_path",
-           "topk_ranks_closed_form", "mask_path", "row_lse_model"]
+           "topk_ranks_closed_form", "topk_radix_select_model", "topk_staged",
+           "topk_keys_reread", "mask_path", "row_lse_model",
+           "BLOCK_LAUNCHES", "WIDE_LAUNCHES"]
 
 KERNELS = ("vntk_topk", "vntk_mask", "vntk_stacked_topk", "vntk_stacked_mask",
            "vntk_compressed_topk", "vntk_compressed_mask",
            "vntk_stacked_compressed_topk", "vntk_stacked_compressed_mask")
 LAUNCHES = {f"{k}{suffix}": 0 for k in KERNELS for suffix in ("", "_fused")}
-
-# Shared memory a block may use on Hopper (the topk keys live there).
-_MAX_SMEM = 227 * 1024
+BLOCK_LAUNCHES = {k: 0 for k in LAUNCHES if k.removesuffix("_fused").endswith(
+    "topk")}
+WIDE_LAUNCHES = dict(BLOCK_LAUNCHES)
 
 
 def counter_name(kernel: str, fused: bool) -> str:
@@ -84,8 +92,9 @@ def counter_name(kernel: str, fused: bool) -> str:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, BLOCK_LAUNCHES, WIDE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,11 +119,12 @@ def _lib() -> ctypes.CDLL:
         p, i64, p, p, i, p, i64, p, i64, i, p, i64, i, i, i, i, p, p, p]
     for kernel in KERNELS:
         getattr(lib, f"{kernel}_launch").restype = ctypes.c_int
-    lib.vntk_topk_smem_bytes.argtypes = [i, i]
-    lib.vntk_topk_smem_bytes.restype = ctypes.c_size_t
-    for route in ("vntk_topk_warp_route", "vntk_mask_warp_route"):
+    for route in ("vntk_topk_warp_route", "vntk_mask_warp_route",
+                  "vntk_topk_staged", "vntk_topk_wide_route"):
         getattr(lib, route).argtypes = [i]
         getattr(lib, route).restype = ctypes.c_int
+    lib.vntk_topk_reread.argtypes = [i]
+    lib.vntk_topk_reread.restype = None
     return lib
 
 
@@ -204,20 +214,32 @@ def _outputs(values, nb: int, width: int, topk: bool = True):
                     for _ in range(ints)))
 
 
-def _check_width(lib, bmax: int, width: int, vocab: int) -> None:
+def _check_width(width: int, vocab: int) -> None:
     if not 1 <= width <= vocab:
         raise ValueError(f"width must be in [1, {vocab}], got {width}")
-    smem = lib.vntk_topk_smem_bytes(bmax, width)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"bmax + width = {bmax + width} candidate keys need "
-                         f"{smem} B of shared memory (limit {_MAX_SMEM})")
 
 
-def _launched(err: int, kernel: str, fused: bool) -> None:
-    """Raise on a failed launch; count a good one."""
+@functools.lru_cache(maxsize=None)
+def _block_route(bmax: int) -> bool:
+    return topk_path(bmax) == "block"
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_route(bmax: int) -> bool:
+    return bool(_lib().vntk_topk_wide_route(int(bmax)))
+
+
+def _launched(err: int, kernel: str, fused: bool, block: bool,
+              wide: bool) -> None:
+    """Raise on a failed launch; count a good one (``block``: a topk launch
+    on the block route, ``wide``: of its 1,024-thread instantiation)."""
     if err:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
     LAUNCHES[counter_name(kernel, fused)] += 1
+    if block:
+        BLOCK_LAUNCHES[counter_name(kernel, fused)] += 1
+    if wide:
+        WIDE_LAUNCHES[counter_name(kernel, fused)] += 1
 
 
 def _launch(kernel: str, fused: bool, values, nodes, cids, row_pointers,
@@ -233,7 +255,7 @@ def _launch(kernel: str, fused: bool, values, nodes, cids, row_pointers,
     topk = width is not None
     if topk:
         width = int(width)
-        _check_width(lib, bmax, width, vocab)
+        _check_width(width, vocab)
     outs = _outputs(values, nb, width if topk else vocab, topk=topk)
     if nb == 0:
         return outs
@@ -250,7 +272,8 @@ def _launch(kernel: str, fused: bool, values, nodes, cids, row_pointers,
         err = getattr(lib, f"{kernel}_launch")(
             values.data_ptr(), values.stride(0), nodes.data_ptr(), *tables,
             *shape, int(fused), *(o.data_ptr() for o in outs), stream)
-    _launched(err, kernel, fused)
+    _launched(err, kernel, fused, topk and _block_route(bmax),
+              topk and _wide_route(bmax))
     return outs
 
 
@@ -406,6 +429,30 @@ def topk_path(bmax: int) -> str:
     return "warp" if _lib().vntk_topk_warp_route(int(bmax)) else "block"
 
 
+def topk_staged(bmax: int) -> bool:
+    """Whether the block route stages the keys of rows of ``bmax`` slots in
+    shared memory (4 bytes a slot, while they fit the card's limit), or
+    re-reads them in each pass."""
+    staged = _lib().vntk_topk_staged(int(bmax))
+    if staged < 0:
+        raise RuntimeError("vntk_topk_staged: CUDA error")
+    return bool(staged)
+
+
+@contextlib.contextmanager
+def topk_keys_reread():
+    """Within it the block route stages no keys: each pass re-reads them
+    from the CSR row and the logit row at every row width, as it does past
+    :func:`topk_staged`'s limit, so that path is checked and timed at widths
+    that would stage."""
+    lib = _lib()
+    lib.vntk_topk_reread(1)
+    try:
+        yield
+    finally:
+        lib.vntk_topk_reread(0)
+
+
 def mask_path(bmax: int) -> str:
     """The path the mask kernel takes for rows of ``bmax`` slots, read from
     the built library: ``"warp"`` (one warp holds the slots in its lanes)
@@ -484,6 +531,149 @@ def topk_ranks_closed_form(keys, toks, n_real, bmax: int, width: int,
     rank += torch.where(NEG_INF > key, n_in, 0)
     rank += torch.where(minf > key, width - n_in, 0)
     write(cand & (rank < width), rank, key, tok, lane.expand(nb, 32))
+    if bool((source < 0).any()):
+        raise AssertionError("a rank below width was not written")
+    return scores, tokens, source
+
+
+_BINS = 256  # the block route's radix digit: 8 bits a pass
+_ROUND = 256  # winners it ranks a round
+
+
+def _order_key(keys):
+    """``order_key`` of ``csrc/vntk.cu``: float32 keys as int64 values of
+    uint32s in the selection's order (larger first); -0 takes +0's value,
+    every NaN the largest."""
+    bits = keys.float().contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    bits = torch.where(bits == 0x80000000, 0, bits)
+    u = torch.where(bits >= 0x80000000, ~bits & 0xFFFFFFFF, bits | 0x80000000)
+    return torch.where(torch.isnan(keys), 0xFFFFFFFF, u)
+
+
+def _radix_threshold(comp, k: int, digits: int, passes: list):
+    """The radix select of ``vntk_topk_kernel``: the composite of the
+    ``k``-th largest of ``comp`` (distinct int64s of ``digits`` bytes), a
+    digit of 8 bits a pass from the top, each pass a histogram of the
+    values that match the digits chosen so far; it stops once the digit's
+    bin holds exactly the values still needed.  Every value at or above the
+    result is among the top ``k``, and no other.  Appends the passes made
+    to ``passes``."""
+    prefix = 0
+    for p in range(digits):
+        dsh = 8 * (digits - 1 - p)
+        live = (comp if p == 0
+                else comp[(comp >> (dsh + 8)) == (prefix >> (dsh + 8))])
+        hist = torch.bincount((live >> dsh) & (_BINS - 1), minlength=_BINS)
+        from_top = hist.flip(0).cumsum(0).flip(0)  # the values in bins >= b
+        b = int((from_top >= k).nonzero().max())
+        above = int(from_top[b] - hist[b])
+        prefix |= b << dsh
+        k -= above
+        if int(hist[b]) == k:
+            break
+    passes.append(p + 1)
+    return prefix
+
+
+def _missing_tokens(toks, need: int):
+    """Missing candidates ``i < need`` of a row's sorted distinct tokens,
+    as the kernel writes them: slot ``j`` owns the ``i`` in ``[g_{j-1},
+    g_j)`` (``g_j = tok_j - j``, ``g_{-1} = 0``), whose token is ``i + j``;
+    the tail ``i >= g_{n-1}`` takes ``i + n``.  Returns ``(i, token)``."""
+    n = toks.shape[0]
+    g = toks - torch.arange(n)
+    lo = torch.cat([torch.zeros(1, dtype=torch.long), g[:-1]]).clamp(min=0)
+    hi = g.clamp(max=need)
+    ii, tt = [], []
+    for j in (hi > lo).nonzero().flatten().tolist():
+        i = torch.arange(int(lo[j]), int(hi[j]))
+        ii.append(i)
+        tt.append(i + j)
+    start = max(int(g[-1]) if n else 0, 0)
+    tail = torch.arange(start, max(start, need))
+    ii.append(tail)
+    tt.append(tail + n)
+    return torch.cat(ii), torch.cat(tt)
+
+
+def topk_radix_select_model(keys, toks, n_real, bmax: int, width: int,
+                            vocab: int, passes: list | None = None):
+    """The block route's selection (``vntk_topk_kernel`` in
+    ``csrc/vntk.cu``) in plain torch, step for step; no path calls it.
+
+    Row ``r``'s slot ``j`` has key ``keys[r, j]`` (the log-prob at its
+    token) and token ``toks[r, j]``, both read only below ``n_real[r]``;
+    the row's tokens are sorted and distinct, as a CSR row's are.  The
+    candidates in closed form: padding slot ``p`` (``-FLT_MAX``) at rank
+    ``c_min + n_in + p``, missing token ``i`` at ``c_neg + i`` while in
+    range (``NEG_INF``) and ``c_min + n_pad + i`` past it (``-FLT_MAX``),
+    ``c_neg`` and ``c_min`` counting the real keys at or above each; the
+    real slots' top ``min(width, n_real)`` by a radix select on (order key,
+    inverted slot index), ``_ROUND`` ranks a round, ranked among
+    themselves by counting and shifted past the closed-form candidates
+    above them.  Returns ``(scores, tokens, source)`` as
+    :func:`topk_ranks_closed_form` does; ``passes`` receives each select's
+    pass count.
+    """
+    if not 33 <= bmax <= 1 << 24:
+        raise ValueError(f"the block route models bmax in [33, 2**24], got "
+                         f"{bmax}")
+    nb = keys.shape[0]
+    minf = torch.finfo(torch.float32).min
+    uneg = int(_order_key(torch.tensor([NEG_INF]))[0])
+    umin = int(_order_key(torch.tensor([minf]))[0])
+    passes = [] if passes is None else passes
+    ns = 1  # bytes of the inverted slot index in the composite
+    while ns < 3 and (bmax - 1) >> (8 * ns):
+        ns += 1
+    digits, smask = 4 + ns, (1 << (8 * ns)) - 1
+    scores = torch.full((nb, width), float("nan"))
+    tokens = torch.full((nb, width), -1, dtype=torch.int32)
+    source = torch.full((nb, width), -1, dtype=torch.long)
+
+    for r in range(nb):
+        def put(rank, sc, tk, src):
+            ok = rank < width
+            rank = rank[ok]
+            if (bool((source[r, rank] >= 0).any())
+                    or rank.unique().numel() != rank.numel()):
+                raise AssertionError("two candidates took one rank")
+            scores[r, rank] = torch.as_tensor(sc, dtype=torch.float32
+                                              ).expand(ok.shape)[ok]
+            tokens[r, rank] = torch.as_tensor(tk).expand(ok.shape)[ok].int()
+            source[r, rank] = src[ok]
+
+        n = int(min(max(int(n_real[r]), 0), bmax))
+        key, tok = keys[r, :n].float(), toks[r, :n].long()
+        uk = _order_key(key)
+        c_neg, c_min = int((uk >= uneg).sum()), int((uk >= umin).sum())
+        n_pad, n_in = bmax - n, min(width, max(vocab - n, 0))
+        p = torch.arange(n_pad)
+        put(c_min + n_in + p, minf, 0, n + p)
+        i = torch.arange(n_in, width)
+        put(c_min + n_pad + i, minf, 0, bmax + i)
+        need = max(0, min(n_in, width - c_neg))
+        if need:
+            i, t = _missing_tokens(tok, need)
+            put(c_neg + i, NEG_INF, t, bmax + i)
+        comp = (uk << (8 * ns)) | (~torch.arange(n) & smask)
+        kk, done, thr_prev = min(width, n), 0, None
+        while done < kk:
+            k = min(kk, done + _ROUND)
+            thr = _radix_threshold(comp, k, digits, passes)
+            won = comp >= thr
+            if thr_prev is not None:
+                won &= comp < thr_prev
+            j = won.nonzero().flatten()
+            if j.numel() != k - done:
+                raise AssertionError(f"a round gathered {j.numel()} slots, "
+                                     f"not {k - done}")
+            c = comp[j]
+            rank = done + (c[None, :] > c[:, None]).sum(1)
+            rank += torch.where(uk[j] < uneg, n_in, 0)
+            rank += torch.where(uk[j] < umin, n_pad + width - n_in, 0)
+            put(rank, key[j], tok[j], j)
+            done, thr_prev = k, thr
     if bool((source < 0).any()):
         raise AssertionError("a rank below width was not written")
     return scores, tokens, source

@@ -5,8 +5,13 @@
 
 ``--config static_gr`` serves the paper's 3B configuration (SID vocab 2048,
 L=8, 256-token histories); ``small`` a 4-layer, 128-wide model over a
-256-token SID vocab with L=4 and 16-token histories (the reference
-launcher's defaults).  Weights are random, made from ``--seed``.
+``--vocab``-token SID vocab (256) with L = ``--sid-length`` (4) and
+16-token histories (the reference launcher's defaults).  Weights are
+random, made from ``--seed``.  The reference's options are all here, with
+its defaults (``--batch`` 4, ``--requests`` 5, ``--log-level``); ``--impl``
+takes the port's values: ``cuda`` (default: the CUDA kernels on the card,
+their plain versions on CPU tensors) or ``plain`` (the plain PyTorch
+constraint step, on the card too).
 
 ``--engine`` picks how requests are served:
 
@@ -112,13 +117,21 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", choices=["small", "static_gr"], default="small")
     ap.add_argument("--constraints", type=int, default=20_000)
-    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--vocab", type=int, default=256,
+                    help="SID vocab of --config small (static_gr: 2048)")
+    ap.add_argument("--sid-length", type=int, default=4,
+                    help="SID length L of --config small (static_gr: 8)")
+    ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--beam", type=int, default=None,
                     help="beam size M (default: 8 small, 70 static_gr)")
-    ap.add_argument("--requests", type=int, default=3,
+    ap.add_argument("--requests", type=int, default=5,
                     help="timed request batches after one warm-up batch")
     ap.add_argument("--unconstrained", action="store_true",
                     help="decode with no constraint (DecodePolicy.unconstrained)")
+    ap.add_argument("--impl", choices=["cuda", "plain"], default="cuda",
+                    help="constraint step on the sparse levels: the CUDA "
+                         "kernels (their plain versions on CPU tensors) or "
+                         "the plain PyTorch step")
     ap.add_argument("--fused", action="store_true",
                     help="fold the log-softmax into the VNTK kernel")
     ap.add_argument("--no-topk", action="store_true",
@@ -160,9 +173,17 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch constraint step)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-level", default="INFO",
+                    choices=["DEBUG", "INFO", "WARNING", "ERROR"],
+                    help="stdlib logging level for the repro_torch.* loggers")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
+    logging.basicConfig(level=getattr(logging, args.log_level),
                         format="%(asctime)s %(levelname)s %(name)s %(message)s")
+    if args.config == "static_gr" and (args.vocab, args.sid_length) not in (
+            (256, 4), (static_gr.SID_VOCAB, static_gr.SID_LENGTH)):
+        ap.error(f"--config static_gr serves SID vocab {static_gr.SID_VOCAB} "
+                 f"and length {static_gr.SID_LENGTH}; --vocab and "
+                 "--sid-length set --config small")
 
     device = resolve_device(args.device)
     if args.spmd:
@@ -209,8 +230,9 @@ def serve(args, device, injector, metrics, breaker) -> int:
         hist_len, beam = static_gr.HISTORY_LEN, args.beam or static_gr.BEAM_SIZE
         dense_d = static_gr.DENSE_D
     else:
-        cfg, vocab, L, hist_len, beam, dense_d = (small_config(256), 256, 4, 16,
-                                                  args.beam or 8, 2)
+        vocab, L = args.vocab, args.sid_length
+        cfg, hist_len, dense_d = small_config(vocab), 16, 2
+        beam = args.beam or 8
     if continuous:  # level-free masking needs node ids unique across levels
         dense_d = 0
     rng = np.random.default_rng(args.seed)
@@ -223,9 +245,10 @@ def serve(args, device, injector, metrics, breaker) -> int:
         tm = TransitionMatrix.from_sids(sids, vocab, dense_d=dense_d,
                                         device=device)
         rows_model = args.engine == "spmd" and args.spmd_rows == "model"
+        plain = rows_model or args.impl == "plain"
         policy = DecodePolicy.static(tm, fused=args.fused,
                                      topk=not args.no_topk,
-                                     impl="plain" if rows_model else None)
+                                     impl="plain" if plain else None)
         logger.info("constraint index: %d states (%.2fs build); policy %s",
                     tm.n_states, time.time() - t0, policy.describe())
     params = transformer.init_params(cfg, seed=args.seed, device=device)

@@ -5,30 +5,33 @@ neither), so they run there with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-``chip_smoke.py`` holds every kernel against its plain version at the
-main paths' shapes; these are the quick checks of the EmbeddingBag
-dispatch and launch counting, for one table and for a group, of the VNTK
-topk kernel's two routes (a warp per row up to bmax 32, a block per row
-above) for each of its eight instantiations, and of the VNTK mask kernel's
-two paths (one warp holds the slots up to bmax 32, the block scatters them
+``chip_smoke.py`` holds every kernel against its plain version at the main
+paths' shapes; these are the quick checks of the EmbeddingBag dispatch and
+launch counting, for one table and for a group, of the VNTK topk kernel's
+two routes (a warp per row up to bmax 32, a block per row above) for each
+of its eight instantiations, of the block route's radix select for each of
+its twelve (int16 and int32 slabs) at bmax 33, 2,048 and past 32,768, with
+its keys staged and, at 65,536, re-read, and of the VNTK mask kernel's two
+paths (one warp holds the slots up to bmax 32, the block scatters them
 above) for each of its eight, with their 16-byte and scalar loads and
-stores.  The §5.2 baselines have no kernel: their masks on CUDA tensors
-must equal their masks on the CPU, and an unconstrained beam search runs on
-the card with no VNTK launch.  A small batch engine serves on the card
-through a hot and a cold swap that an ``AsyncRefresher`` builds on its own
-stream, and a CUDA out-of-memory error in the refresher's build fails its
-future while the old store keeps serving.  The continuous engine's pieces
-on the card: the level-free mask over a dense_d=0 trie and store (the mask
-kernel's block path, at a root row of 512 slots and more, and at a bmax
-above V under the store's headroom) against its plain version,
-``shared_mask_step`` against the per-level step, ``paged_decode_step``
-against ``decode_step``, and the engine against ``ServingEngine`` at equal
-shapes, bit for bit.  Tiering: the tiered search with the kernels on a hot
-slab of exactly ``cold_base`` rows, bit-equal to the untiered search, and
-the prefetcher's pinned staging; ``gr_decode_step`` in bf16 against float32
-on the CPU; ``StepTimer`` on the card; ``SpmdRetriever`` in a world of one
-over nccl, bit-equal to ``GenerativeRetriever``.
-"""
+stores. The §5.2 baselines have no kernel: their masks on CUDA tensors must
+equal their masks on the CPU, and an unconstrained beam search runs on the
+card with no VNTK launch. A small batch engine serves on the card through a
+hot and a cold swap that an ``AsyncRefresher`` builds on its own stream,
+and a CUDA out-of-memory error in the refresher's build fails its future
+while the old store keeps serving; host tables cross to the card through
+the store's pinned staging, chunk by chunk, unchanged. The continuous
+engine's pieces on the card: the level-free mask over a dense_d=0 trie and
+store (the mask kernel's block path, at a root row of 512 slots and more,
+and at a bmax above V under the store's headroom) against its plain
+version, ``shared_mask_step`` against the per-level step,
+``paged_decode_step`` against ``decode_step``, and the engine against
+``ServingEngine`` at equal shapes, bit for bit. Tiering: the tiered search
+with the kernels on a hot slab of exactly ``cold_base`` rows, bit-equal to
+the untiered search, and the prefetcher's pinned staging;
+``gr_decode_step`` in bf16 against float32 on the CPU; ``StepTimer`` on the
+card; ``SpmdRetriever`` in a world of one over nccl, bit-equal to
+``GenerativeRetriever``."""
 import threading
 
 import numpy as np
@@ -247,6 +250,162 @@ def test_topk_warp_route_reads_unaligned_logit_rows(rng, kernel):
         for g, w in zip(got[1:], want[1:]):
             assert torch.equal(g, w)
         torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+
+
+TOPKS = ["vntk_topk", "vntk_stacked_topk", "vntk_compressed_topk",
+         "vntk_stacked_compressed_topk"]
+# (V, SIDs of length 2) of the block route's tries: the root row holds
+# nearly every token, so bmax 33 and 2,048 cut it and 32,768 does not; V =
+# 32,768 is the largest int16 slab, V = 40,000 and 65,536 int32 ones, and
+# 65,536 keys pass a block's shared memory
+BLOCK_TRIES = {2048: 40_000, 32_768: 400_000, 40_000: 480_000,
+               65_536: 800_000}
+
+
+@pytest.fixture(scope="module")
+def block_tries():
+    """Dense_d=0 tries of BLOCK_TRIES on the card, one matrix and a store
+    of two members each, built once (on the first card test that asks)."""
+    cache = {}
+
+    def get(V, stacked):
+        if (V, stacked) not in cache:
+            rng = np.random.default_rng(V)
+            fts = [build_flat_trie(rng.integers(0, V, (n, 2)), V, dense_d=0)
+                   for n in (BLOCK_TRIES[V], BLOCK_TRIES[V] // 2)]
+            mats = [TransitionMatrix.from_flat_trie(f, device="cuda")
+                    for f in fts]
+            tables = (ConstraintStore.from_matrices(mats, device="cuda")
+                      if stacked else mats[0])
+            cache[V, stacked] = fts, tables
+        return cache[V, stacked]
+
+    return get
+
+
+def _block_args(rng, get, kernel, fused, bmax, V, width=72, nb=37):
+    """A topk function's arguments at the root rows (and, every third row,
+    level-1 rows and the sink) of a trie of ``get`` over V tokens; logits
+    or log-probs with columns at NEG_INF and -inf."""
+    stacked, compressed = "stacked" in kernel, "compressed" in kernel
+    fts, tables = get(V, stacked)
+    ids = rng.integers(0, len(fts) if stacked else 1, nb).astype(np.int32)
+    nodes = np.ones(nb, np.int32)
+    for r in range(0, nb, 3):
+        off = fts[ids[r]].level_offsets
+        nodes[r] = rng.integers(off[1], off[2])
+    nodes[::7] = 0
+    x = torch.from_numpy(rng.normal(size=(nb, V)).astype(np.float32) * 4)
+    x = x.to(torch.bfloat16).float()  # the model's ties
+    x[:, ::7], x[:, 3::11] = -float("inf"), NEG_INF
+    values = (x if fused else torch.log_softmax(x, -1)).cuda()
+    head = [values, torch.from_numpy(nodes).cuda()]
+    if stacked:
+        head.append(torch.from_numpy(ids).cuda())
+    if compressed:
+        slab = CompressedSlab.build(tables)
+        assert slab.tok_delta.dtype == (torch.int16 if V <= 32_768
+                                        else torch.int32)
+        csr = [tables.row_pointers, slab.tok_delta, slab.base_for_step(0)]
+    else:
+        csr = [tables.row_pointers, tables.edges]
+    return head + csr + [bmax, V, width, fused]
+
+
+def _assert_topk_equal(got, want, fused):
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g, w)
+    if fused:
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kernel", TOPKS)
+@pytest.mark.parametrize("V,bmax", [
+    (2048, 33), (2048, 2048), (32_768, 32_768), (40_000, 33),
+    (40_000, 40_000), (65_536, 65_536)])
+def test_topk_block_route_equals_plain_on_the_card(rng, block_tries, kernel,
+                                                   fused, V, bmax):
+    """Every block instantiation (fused or not, stacked or not, int2
+    pairs, int16 deltas at V <= 32,768 and int32 deltas above) at bmax 33,
+    2,048 and >= 32,768 (a root row of every token: past the 19,370
+    candidates the first block kernel's shared memory took), and at 65,536,
+    whose keys the kernel re-reads in every pass: one launch, equal to the
+    plain version, counted as the 1,024-thread instantiation's past 8,192
+    slots."""
+    _card()
+    assert kv.topk_path(bmax) == "block"
+    assert kv.topk_staged(bmax) == (bmax < 65_536)
+    args = _block_args(rng, block_tries, kernel, fused, bmax, V)
+    name = kv.counter_name(kernel, fused)
+    n, w = kv.BLOCK_LAUNCHES[name], kv.WIDE_LAUNCHES[name]
+    _assert_topk_equal(*_launch_once(kernel, fused, args), fused)
+    assert kv.BLOCK_LAUNCHES[name] == n + 1
+    assert kv.WIDE_LAUNCHES[name] == w + (bmax > 8192)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kernel", TOPKS)
+@pytest.mark.parametrize("V,bmax", [(2048, 2048), (32_768, 32_768)])
+def test_topk_block_route_rereads_keys_on_the_card(rng, block_tries, kernel,
+                                                   fused, V, bmax):
+    """Within ``topk_keys_reread`` the block route stages no keys at widths
+    that would stage them, and re-reads them in every pass: equal to the
+    plain version; staging resumes after it."""
+    _card()
+    args = _block_args(rng, block_tries, kernel, fused, bmax, V)
+    with kv.topk_keys_reread():
+        assert not kv.topk_staged(bmax)
+        _assert_topk_equal(*_launch_once(kernel, fused, args), fused)
+    assert kv.topk_staged(bmax)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kernel", TOPKS)
+def test_topk_block_route_rounds_and_unaligned_rows_on_the_card(
+        rng, block_tries, kernel, fused):
+    """A width of V = 2,048 (eight rounds of the selection) and, fused, a
+    logit row off 16-byte alignment (the scalar loads): equal to the plain
+    version."""
+    _card()
+    wide = _block_args(rng, block_tries, kernel, fused, 2048, 2048,
+                       width=2048)
+    _assert_topk_equal(*_launch_once(kernel, fused, wide), fused)
+    if fused:
+        args = _block_args(rng, block_tries, kernel, fused, 2048, 2048)
+        off = torch.full((args[0].shape[0], 2049), -3.0, device="cuda")
+        off[:, 1:] = args[0]
+        args[0] = off[:, 1:]
+        _assert_topk_equal(*_launch_once(kernel, fused, args), fused)
+
+@pytest.mark.gpu
+def test_store_upload_through_pinned_staging_equals_the_host(rng,
+                                                             monkeypatch):
+    """Host matrices cross to the card through two pinned staging buffers:
+    cut to 4 KB (every table in many chunks, each buffer refilled after
+    its copy's event), the store built on the card, and ``with_members``
+    on it, equal the same stores built on the host, table for table."""
+    _card()
+    from repro_torch.constraints import store as store_mod
+
+    monkeypatch.setattr(store_mod, "_STAGE_BYTES", 4096)
+    mats = [TransitionMatrix.from_flat_trie(
+        build_flat_trie(rng.integers(0, 64, (n, 3)), 64, dense_d=1),
+        device="cpu") for n in (3000, 1500)]
+    for host, card in (
+            (ConstraintStore.from_matrices(mats, device="cpu"),
+             ConstraintStore.from_matrices(mats, device="cuda")),
+            (ConstraintStore.from_matrices(mats, device="cpu").with_members(
+                mats[::-1]), ConstraintStore.from_matrices(
+                    mats, device="cuda").with_members(mats[::-1]))):
+        for f in store_mod._LEAF_FIELDS:
+            assert getattr(card, f).is_cuda
+            assert torch.equal(getattr(card, f).cpu(), getattr(host, f)), f
 
 
 def _assert_mask_equal(got, want, fused):

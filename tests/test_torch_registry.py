@@ -288,6 +288,25 @@ def test_swap_delta_matches_full_swap(rng):
     assert_stores_equal(reg.current()[0], ref.current()[0])
 
 
+def test_assemble_delta_is_swap_deltas_host_half(rng):
+    """``assemble_delta`` commits nothing (version, store and sources
+    stay); ``with_members`` of its matrices is the store ``swap_delta``
+    then installs, array for array, and the reference registry's."""
+    cat = unique_catalog(rng, 300)
+    reg, ref = two_slot_registry(), jax_two_slot_registry()
+    front = reg.build(ItemCatalog(**cat))
+    ref.build(JaxItemCatalog(**cat))
+    rm, added = make_delta(rng, cat)
+    mats = reg.assemble_delta(port_delta(rm, added))
+    assert reg.version == 1 and reg.current()[0] is front
+    back = front.with_members(mats)
+    assert reg.assemble_delta(CatalogDelta()) is None
+    assert reg.swap_delta(port_delta(rm, added)) == 2
+    ref.swap_delta(jax_delta(rm, added))
+    assert_stores_equal(back, reg.current()[0])
+    assert_stores_equal(back, ref.current()[0])
+
+
 def test_swap_delta_empty_is_versionless_noop(rng):
     reg = two_slot_registry()
     reg.build(ItemCatalog(**unique_catalog(rng, 200)))
