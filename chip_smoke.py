@@ -393,7 +393,32 @@ Phases (any failure raises and the script exits non-zero):
               result bit-equal to the single-device plain policy.  Per-rank
               median ms, edge bytes and ``CollectiveLog`` bytes; one
               ``{"spmd": ...}`` line.
-15. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
+15. dry run — ``repro_torch.launch.dryrun`` (the reference's multi-pod
+              dry run): (a) on the host beside phase 1's build (two
+              ``nvcc`` processes; no timed phase runs beside it: phase 2
+              waits for it), in 6 spawned processes (3 per mesh), each a
+              fake world of 256 or 512 ranks: static-gr's three cells,
+              stablelm-12b's train_4k, prefill_32k and decode_32k (cut to
+              2 of 40 layers: uncut, prefill_32k alone traces for ~6 min),
+              meshgraphnet full_graph_sm, dlrm train, wide-deep serve_p99,
+              fm and mind retrieval_cand on both production meshes, each
+              step run once over meta DTensors; one line per cell (GB per
+              rank, collective counts, counted and model FLOPs), failing on
+              any failed or missing cell.  (b) static-gr's
+              ``gr_serve_constrained`` at B = 32 (of 512: one data row of
+              16x16) in a world of one over nccl on a (1, 1) mesh, with
+              phase 2's trie padded into the cell's trie shapes and beam
+              nodes drawn from its level-2 states: argument bytes equal to
+              the (1, 1) prediction (and the allocator's bytes for the drawn
+              ones equal to their sizes in 512-byte blocks), FLOPs counted on
+              the card equal to those under meta tensors, the cell's plain
+              constraint step bit-equal to ``vntk_mask_kernel``
+              (``kernels/ops.vntk``) on its own inputs (comparison launches;
+              the step's own path launches no kernel: a ctypes launch takes
+              no DTensor), every beam in the trie; step ms (median of 3
+              after a warm-up) and peak GB beside the card's name and power
+              limit; one ``{"dryrun": ...}`` line.
+16. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
               with a row per kernel function (a VNTK row with the ``path``
               its main-path levels took, ``warp`` or ``block``, for topk
               and mask alike; phase 7's ``..._block`` rows; phase 3's
@@ -5002,6 +5027,227 @@ def phase_spmd(args, kept):
     return out, spmd_launches, child_launches
 
 
+# phase 15(a): the dry-run cells of both production meshes (fake worlds of
+# 256 and 512 ranks on the host)
+DRYRUN_LM = "stablelm-12b"  # the LM whose train/prefill/decode cells run
+DRYRUN_LM_LAYERS = 2  # of 40: the cut that keeps prefill_32k's trace short
+DRYRUN_WORKERS = 3  # processes per mesh: 6, beside phase 1's two nvcc
+DRYRUN_SERVE_B = 32  # phase 15(b): one (16, 16) data row's share of 512
+
+
+def dryrun_cells() -> list:
+    """static-gr's three cells, one LM's train/prefill/decode, meshgraphnet
+    and the recsys train, serve and retrieval kinds (bulk and two-tower)."""
+    from repro_torch.launch.steps import list_cells
+
+    keep = {("meshgraphnet", "full_graph_sm"), ("dlrm-mlperf", "train_batch"),
+            ("wide-deep", "serve_p99"), ("fm", "retrieval_cand"),
+            ("mind", "retrieval_cand")}
+    return [(a, s) for a, s, _ in list_cells()[0]
+            if a in ("static-gr", DRYRUN_LM) or (a, s) in keep]
+
+
+def start_dryrun_cells():
+    """Phase 15(a) in a thread: :func:`dryrun.sweep` of :func:`dryrun_cells`
+    on both production meshes (records under ``build/dryrun``), started
+    with phase 1's build and joined by :func:`dryrun_cells_report` before
+    phase 2, so that no timed phase runs beside it."""
+    from repro_torch.launch import dryrun
+
+    out_dir = os.path.join(HERE, "build", "dryrun")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "dryrun.jsonl")
+    if os.path.exists(out):
+        os.remove(out)
+    state = {"cells": dryrun_cells(), "out": out, "t0": time.time()}
+
+    def run():
+        try:
+            state["n_fail"] = dryrun.sweep(
+                {False: state["cells"], True: state["cells"]}, out,
+                verbose=False, workers=DRYRUN_WORKERS, cfg_overrides={
+                    DRYRUN_LM: {"n_layers": DRYRUN_LM_LAYERS}})
+        except Exception as e:  # noqa: BLE001 - raised again when joined
+            state["error"] = e
+        state["seconds"] = time.time() - state["t0"]
+
+    state["thread"] = threading.Thread(target=run, daemon=True)
+    state["thread"].start()
+    log(f"  15(a) started beside the build: {len(state['cells'])} cells x 2 "
+        f"meshes over {2 * DRYRUN_WORKERS} processes ({DRYRUN_LM} at "
+        f"{DRYRUN_LM_LAYERS} layers)")
+    return state
+
+
+def dryrun_cells_report(state) -> dict:
+    """Phase 15(a)'s records once its thread ends: one line per cell,
+    failures raised."""
+    t0 = time.time()
+    state["thread"].join()
+    waited = time.time() - t0
+    if "error" in state:
+        raise state["error"]
+    with open(state["out"]) as f:
+        recs = [json.loads(line) for line in f]
+    os.remove(state["out"])
+    bad = [r for r in recs if not r.get("ok")]
+    if bad or state["n_fail"]:
+        raise AssertionError(f"dry-run cells failed: {bad[:3]}")
+    want = {(a, s, m) for a, s in state["cells"]
+            for m in ("16x16", "2x16x16")}
+    got = {(r["arch"], r["shape"], r["mesh"]) for r in recs}
+    if got != want:
+        raise AssertionError(f"dry-run cells missing: {sorted(want - got)}")
+    rows = []
+    for r in sorted(recs, key=lambda r: (r["mesh"], r["arch"], r["shape"])):
+        coll = r["collectives"]
+        cut = f" at {r['cfg_overrides']}" if "cfg_overrides" in r else ""
+        log(f"  [{r['mesh']}] {r['arch']} x {r['shape']} ({r['kind']}){cut}: "
+            f"args {r['arg_bytes_per_chip'] / 1e9:.3f} GB/rank, out "
+            f"{r['out_bytes_per_chip'] / 1e9:.3f} GB/rank, collectives "
+            f"{coll['counts_by_op']} ({coll['link_bytes'] / 1e9:.3f} GB "
+            f"link/rank), {r['counted_flops_per_rank'] / 1e12:.3f} TFLOP/rank "
+            f"counted vs {r['model_flops_per_chip'] / 1e12:.3f} model, "
+            f"trace {r['trace_s']:.1f}s")
+        rows.append({k: r[k] for k in (
+            "arch", "shape", "kind", "mesh", "arg_bytes_per_chip",
+            "out_bytes_per_chip", "counted_flops_per_rank",
+            "model_flops_per_chip", "trace_s")} | {
+            "collectives": coll["counts_by_op"],
+            "link_bytes": coll["link_bytes"],
+            "cfg_overrides": r.get("cfg_overrides")})
+    log(f"  15(a): {len(recs)} cells in {state['seconds']:.1f}s, "
+        f"{waited:.1f}s of it after the build")
+    return {"cells": rows, "seconds": state["seconds"],
+            "waited_after_build_s": waited}
+
+
+def padded_trie(tm, nodes_rng, B, M):
+    """Phase 2's trie padded into ``_gr_trie_specs()``'s shapes (empty rows
+    after its last state, zero edges after its last edge) on the card, and
+    ``(B, M)`` beam nodes drawn from its level-2 states."""
+    from repro_torch.launch.steps import _gr_trie_specs
+
+    specs = _gr_trie_specs()
+    n_rp, n_e = specs["row_pointers"].shape[0], specs["edges"].shape[0]
+    rp, edges = tm.row_pointers, tm.edges
+    if rp.numel() > n_rp or edges.shape[0] > n_e:
+        raise AssertionError(f"trie ({rp.numel()} row pointers, "
+                             f"{edges.shape[0]} edges) past the cell's specs")
+    out = {
+        "row_pointers": torch.full((n_rp,), int(rp[-1]), dtype=torch.int32,
+                                   device="cuda"),
+        "edges": torch.zeros((n_e, 2), dtype=torch.int32, device="cuda"),
+        "l1_mask_packed": tm.l1_mask_packed.to("cuda"),
+        "l1_states": tm.l1_states.to("cuda", torch.int32),
+    }
+    out["row_pointers"][:rp.numel()] = rp.to("cuda", torch.int32)
+    out["edges"][:edges.shape[0]] = edges.to("cuda", torch.int32)
+    for k, v in out.items():
+        if tuple(v.shape) != tuple(specs[k].shape) or v.dtype != specs[k].dtype:
+            raise AssertionError(f"{k}: {tuple(v.shape)} {v.dtype} is not the "
+                                 f"cell's {tuple(specs[k].shape)}")
+    # level-2 states are [1, first level-3 state): the first edge's target
+    hi = int(edges[0, 1])
+    nodes = torch.from_numpy(nodes_rng.integers(1, hi, (B, M))).to(
+        "cuda", torch.int32)
+    return out, nodes
+
+
+def phase_dryrun(args, kept, cells) -> dict:
+    """(a) the fake-world cells' report (run beside phase 1); (b)
+    static-gr's ``gr_serve_constrained`` at B = 32 in a world of one on
+    the card."""
+    import repro_torch.launch.steps as steps
+    from repro_torch.configs import get_bundle, static_gr
+    from repro_torch.configs.static_gr import GRShape
+    from repro_torch.core.vntk import NEG_INF
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vntk as kv
+    from repro_torch.launch import dryrun
+
+    out = {"a": cells}
+    # what the uncut cell (B = 512) would hold on one rank of a (1, 1) mesh
+    full = dryrun.run_one("static-gr", "gr_serve_constrained", "cuda",
+                          materialize=False)
+    log(f"  15(b) at the full global batch 512 a (1, 1) rank would hold "
+        f"{full['arg_bytes_predicted'] / 1e9:.2f} GB of arguments and "
+        f"{full['out_bytes_predicted'] / 1e9:.2f} GB of outputs: cut to "
+        f"B = {DRYRUN_SERVE_B}")
+    B, M = DRYRUN_SERVE_B, static_gr.BEAM_SIZE
+    bundle = dataclasses.replace(get_bundle("static-gr"), shapes=(GRShape(
+        "gr_serve_constrained", "serve_constrained", B),))
+    tm_args, nodes = padded_trie(kept["tm"], np.random.default_rng(
+        [args.seed, 15]), B, M)
+    seen = {}
+    plain = steps.vntk_reference_scatter
+
+    def capture(lp, nodes_, rp, edges, bmax, V):  # the cell's own step
+        masked, nxt = plain(lp, nodes_, rp, edges, bmax, V)
+        if lp.to_local().is_cuda:
+            seen.update(lp=lp.to_local(), nodes=nodes_.to_local(),
+                        masked=masked.to_local(), nxt=nxt.to_local(),
+                        bmax=bmax, V=V)
+        return masked, nxt
+
+    steps.vntk_reference_scatter = capture
+    kv.reset_launches()  # phase 15(b)'s path starts here
+    try:
+        rec = dryrun.run_one("static-gr", "gr_serve_constrained", "cuda",
+                             bundle=bundle, seed=args.seed, iters=3,
+                             args={7: nodes, 8: tm_args})
+    finally:
+        steps.vntk_reference_scatter = plain
+    on_path = {k: n for k, n in kv.LAUNCHES.items() if n}  # ... and ends here
+    if on_path:
+        raise AssertionError(f"the dry-run step launched kernels: {on_path}")
+    if rec["arg_bytes_per_chip"] != rec["arg_bytes_predicted"]:
+        raise AssertionError(f"argument bytes {rec['arg_bytes_per_chip']} != "
+                             f"predicted {rec['arg_bytes_predicted']}")
+    if rec["arg_bytes_allocated"] != rec["arg_bytes_predicted_allocated"]:
+        raise AssertionError(
+            f"allocated {rec['arg_bytes_allocated']} bytes for the drawn "
+            f"arguments, predicted {rec['arg_bytes_predicted_allocated']}")
+    if rec["counted_flops_per_rank"] != rec["counted_flops_fake"]:
+        raise AssertionError(f"FLOPs on the card {rec['counted_flops_per_rank']}"
+                             f" != under fake tensors {rec['counted_flops_fake']}")
+    # the cell's plain constraint step against vntk_mask_kernel (comparison
+    # launches, after the path's counts were read)
+    masked_k, nxt_k = ops.vntk(seen["lp"], seen["nodes"],
+                               tm_args["row_pointers"], tm_args["edges"],
+                               seen["bmax"], seen["V"])
+    if not (torch.equal(masked_k, seen["masked"])
+            and torch.equal(nxt_k, seen["nxt"])):
+        raise AssertionError("plain constraint step != vntk_mask_kernel")
+    live = int((seen["masked"] > NEG_INF / 2).sum())
+    scores, new_nodes = (t.to_local() for t in rec["outputs"][1:3])
+    if not ((scores > NEG_INF / 2).all() and (new_nodes > 0).all()):
+        raise AssertionError("a beam left the trie in the dry-run step")
+    smi = subprocess.run(
+        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    b = {k: rec[k] for k in (
+        "arg_bytes_per_chip", "arg_bytes_predicted", "arg_bytes_allocated",
+        "arg_bytes_predicted_allocated", "counted_flops_per_rank",
+        "counted_flops_fake", "model_flops_per_chip", "step_ms",
+        "step_ms_all", "peak_bytes", "out_bytes_per_chip", "notes")}
+    b.update(batch=B, cut="global batch 512 -> 32 (one data row of 16x16)",
+             live_candidates=live, card=smi.stdout.strip(),
+             full_batch_arg_bytes=full["arg_bytes_predicted"],
+             full_batch_out_bytes=full["out_bytes_predicted"])
+    log(f"  15(b) static-gr gr_serve_constrained B={B}: args "
+        f"{rec['arg_bytes_per_chip'] / 1e9:.3f} GB (= predicted), step "
+        f"{rec['step_ms']:.2f} ms (median of {len(rec['step_ms_all'])}), peak "
+        f"{rec['peak_bytes'] / 1e9:.2f} GB, "
+        f"{rec['counted_flops_per_rank'] / 1e12:.3f} TFLOP counted (= fake), "
+        f"plain step = vntk_mask_kernel on {live} live candidates; "
+        f"{smi.stdout.strip()}")
+    del rec
+    free_cuda()
+    out["b"] = b
+    return out
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -5020,12 +5266,14 @@ def main() -> int:
 
     log("phase 1: build")
     t0 = time.time()
+    dry = start_dryrun_cells()  # phase 15(a), on the cores nvcc leaves
     libs = build.build_all()
     log(f"  built {sorted(libs)} in {time.time() - t0:.1f}s")
     for name in libs:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"    {line.strip()}")
+    dry_cells = dryrun_cells_report(dry)  # before any timed phase
 
     rng = np.random.default_rng(args.seed)
     log("phase 2: indexes")
@@ -5171,8 +5419,17 @@ def main() -> int:
     print(json.dumps({"spmd": spmd}), flush=True)
     log(f"  phase 14 took {spmd['seconds']:.1f}s")
 
+    log("phase 15: the multi-pod dry run")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    dryrun = phase_dryrun(args, kept, dry_cells)
+    peaks.append(torch.cuda.max_memory_allocated())
+    dryrun["seconds"] = time.time() - t0
+    print(json.dumps({"dryrun": dryrun}), flush=True)
+    log(f"  phase 15 took {dryrun['seconds']:.1f}s")
+
     peak = max(peaks)
-    log(f"phase 15: report ({time.time() - t_start:.1f}s total; peak device "
+    log(f"phase 16: report ({time.time() - t_start:.1f}s total; peak device "
         f"memory {peak / 1e9:.1f} GB)")
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",

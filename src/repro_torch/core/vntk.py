@@ -139,9 +139,9 @@ def _project_scatter(log_probs, nodes, burst, vocab_size: int):
     cols, nxt, valid = burst
     scatter_idx = torch.where(valid, cols, V)
     cand_lp = lp.gather(1, cols.clamp(0, V - 1))
-    masked = torch.full((nb, V + 1), NEG_INF, dtype=lp.dtype, device=lp.device)
+    masked = lp.new_full((nb, V + 1), NEG_INF)
     masked.scatter_(1, scatter_idx, torch.where(valid, cand_lp, NEG_INF))
-    next_dense = torch.zeros((nb, V + 1), dtype=torch.int32, device=lp.device)
+    next_dense = nxt.new_zeros((nb, V + 1))
     next_dense.scatter_(1, scatter_idx, nxt)
     return (masked[:, :V].reshape(batch_shape + (V,)),
             next_dense[:, :V].reshape(batch_shape + (V,)))

@@ -46,10 +46,11 @@ class _ProductF32(torch.autograd.Function):
 
 
 def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched ``a @ b`` as a float32 result of the operands' values."""
-    if a.dtype == torch.float32:
+    """Batched ``a @ b`` as a float32 result of the operands' values (of
+    mixed dtypes too, as JAX promotes them)."""
+    if a.dtype == b.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
+    if a.is_cuda and a.dtype == b.dtype:
         if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
             return _ProductF32.apply(a, b)
         return torch.bmm(a, b, out_dtype=torch.float32)
@@ -93,7 +94,7 @@ def chunked_causal_attention(
     qg = q.reshape(B, Sq, KVH, G, Dh).permute(0, 2, 3, 1, 4)  # (B, KVH, G, Sq, Dh)
     kt = k.permute(0, 2, 3, 1).reshape(B * KVH, Dh, Skv)
     vv = v.permute(0, 2, 1, 3).reshape(B * KVH, Skv, Dv)
-    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    outs = []
     for q0 in range(0, Sq, cq):
         q3 = qg[:, :, :, q0:q0 + cq].reshape(B * KVH, G * cq, Dh)
         q_pos = q_offset + torch.arange(q0, q0 + cq, device=q.device)
@@ -123,9 +124,9 @@ def chunked_causal_attention(
             acc = acc * corr.view(B * KVH, G * cq, 1) + pv
             m = m_new
         o = acc / l.clamp_min(1e-30).view(B * KVH, G * cq, 1)
-        out[:, q0:q0 + cq] = o.view(B, KVH, G, cq, Dv).permute(
-            0, 3, 1, 2, 4).reshape(B, cq, H, Dv)
-    return out
+        outs.append(o.view(B, KVH, G, cq, Dv).permute(
+            0, 3, 1, 2, 4).reshape(B, cq, H, Dv).to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 def decode_attention(

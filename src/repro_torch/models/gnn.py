@@ -27,9 +27,11 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import GNNConfig
-from repro_torch.models.layers import mlp, mlp_init, rms_norm, rms_norm_init
+from repro_torch.models.layers import (_generator, mlp, mlp_init, rms_norm,
+                                       rms_norm_init)
 
-__all__ = ["init_params", "forward", "gnn_loss", "torch_dtype"]
+__all__ = ["init_params", "param_specs", "forward", "gnn_loss",
+           "torch_dtype"]
 
 
 def torch_dtype(cfg: GNNConfig) -> torch.dtype:
@@ -44,10 +46,11 @@ def init_params(cfg: GNNConfig, seed: int = 0, device=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``,
     in the reference's distributions (He-normal weights, zero biases, unit
     norm scales); use :func:`repro_torch.convert.gnn_params_from_jax` to
-    compute with the reference's weights."""
+    compute with the reference's weights.  ``device="meta"`` gives
+    :func:`param_specs`."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = _generator(dev, seed)
     H = cfg.d_hidden
     return {
         "node_enc": mlp_init(gen, _mlp_dims(cfg, cfg.node_feat_dim), dt,
@@ -63,6 +66,11 @@ def init_params(cfg: GNNConfig, seed: int = 0, device=None):
             for _ in range(cfg.n_layers)
         ],
     }
+
+
+def param_specs(cfg: GNNConfig):
+    """:func:`init_params`' tree as ``meta`` tensors (no allocation)."""
+    return init_params(cfg, device="meta")
 
 
 def _step(p, x, e, senders, receivers, cfg: GNNConfig):

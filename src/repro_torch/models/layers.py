@@ -15,6 +15,13 @@ __all__ = ["dense_init", "dense", "mlp_init", "mlp", "rms_norm_init",
            "apply_rope"]
 
 
+def _generator(dev: torch.device, seed: int):
+    """A seeded generator on ``dev``; ``None`` on ``meta``, which has no
+    generator and whose factories draw nothing."""
+    return (None if dev.type == "meta"
+            else torch.Generator(device=dev).manual_seed(seed))
+
+
 def _he(gen: torch.Generator, shape, dtype, device, fan_in=None):
     """He-normal: normal * sqrt(2 / fan_in), fan_in the leading dim."""
     fan_in = fan_in or shape[0]

@@ -83,7 +83,7 @@ def moe_ffn(params, x: torch.Tensor, cfg: MoEConfig):
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     """``F.one_hot`` without its range check, a host sync on the card
     (the indices are top-k positions, in range by construction)."""
-    out = torch.zeros(idx.shape + (n,), dtype=dtype, device=idx.device)
+    out = idx.new_zeros(idx.shape + (n,), dtype=dtype)
     return out.scatter_(-1, idx[..., None], 1)
 
 

@@ -23,8 +23,9 @@ Batch layout (all models), tensors on the parameters' device:
 
 :func:`recsys_loss` trains through the same lookups: on the card the bag
 kernel's launches sit under ``torch.autograd.Function``s whose backward
-scatter-adds into the tables' rows (``kernels/embedding_bag.py``).  Not
-ported: ``param_specs`` (JAX sharding).
+scatter-adds into the tables' rows (``kernels/embedding_bag.py``).
+:func:`param_specs` is :func:`init_params` on ``meta`` (the dry run's
+stand-ins).
 """
 from __future__ import annotations
 
@@ -34,10 +35,11 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.configs.dlrm_mlperf import DLRM_CRITEO_VOCABS
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _he, mlp, mlp_init
+from repro_torch.models.layers import _generator, _he, mlp, mlp_init
 
-__all__ = ["init_params", "forward", "recsys_loss", "mind_interests",
-           "mind_retrieval_scores", "DLRM_CRITEO_VOCABS", "padded_rows"]
+__all__ = ["init_params", "param_specs", "forward", "recsys_loss",
+           "mind_interests", "mind_retrieval_scores", "DLRM_CRITEO_VOCABS",
+           "padded_rows"]
 
 
 def _dtype(cfg: RecsysConfig) -> torch.dtype:
@@ -226,10 +228,14 @@ def init_params(cfg: RecsysConfig, seed: int = 0, device=None):
     (CUDA unless the caller names one).  Same layout and distributions as
     the reference; the numbers differ from ``jax.random``'s (use
     :func:`repro_torch.convert.recsys_params_from_jax` for the reference's
-    weights)."""
+    weights).  ``device="meta"`` gives :func:`param_specs`."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    return _INIT[cfg.model](cfg, gen, dev)
+    return _INIT[cfg.model](cfg, _generator(dev, seed), dev)
+
+
+def param_specs(cfg: RecsysConfig):
+    """:func:`init_params`' tree as ``meta`` tensors (no allocation)."""
+    return init_params(cfg, device="meta")
 
 
 def forward(params, batch, cfg: RecsysConfig, impl=None) -> torch.Tensor:

@@ -51,6 +51,7 @@ from repro_torch.models.attention import (
     decode_attention,
 )
 from repro_torch.models.layers import (
+    _generator,
     _he,
     apply_rope,
     dense_init,
@@ -61,8 +62,8 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.moe import moe_ffn, moe_init
 
-__all__ = ["init_params", "forward", "lm_loss", "lm_loss_trie_aware",
-           "init_cache", "prefill", "decode_step", "gr_decode_step",
+__all__ = ["init_params", "param_specs", "forward", "lm_loss",
+           "lm_loss_trie_aware", "init_cache", "prefill", "decode_step", "gr_decode_step",
            "paged_decode_step", "torch_dtype"]
 
 
@@ -112,11 +113,13 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None):
     projections, unit norm scales, zero biases; the MoE weights as
     :func:`moe.moe_init` says); the numbers differ from ``jax.random``'s.
     Use :func:`repro_torch.convert.params_from_jax` to compute with the
-    reference's weights.
+    reference's weights.  On ``device="meta"`` no generator is made (there
+    is none for meta) and the tree holds shapes and dtypes only
+    (:func:`param_specs`).
     """
     dev = resolve_device(device)
     dtype = torch_dtype(cfg)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = _generator(dev, seed)
     D = cfg.d_model
     emb = torch.randn((cfg.vocab_size, D), generator=gen, device=dev,
                       dtype=torch.float32)
@@ -139,6 +142,12 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device=None):
         layers.append(p)
     params["layers"] = layers
     return params
+
+
+def param_specs(cfg: TransformerConfig):
+    """:func:`init_params`' tree as ``meta`` tensors: its structure, shapes
+    and dtypes, nothing allocated (the dry run's stand-ins)."""
+    return init_params(cfg, device="meta")
 
 
 def _proj(pp, x, width: int, hd: int):
@@ -236,6 +245,12 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
     return x, stacks, aux
 
 
+def _next_tokens(tokens: torch.Tensor) -> torch.Tensor:
+    """``torch.roll(tokens, -1, dims=1)`` as two slices: ``aten.roll`` has
+    no DTensor sharding strategy in some torch releases (the dry run)."""
+    return torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+
+
 def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig,
             ce_chunk: int | None = None) -> torch.Tensor:
     """Next-token CE, computed in sequence chunks (no (T, V) logits tensor
@@ -246,7 +261,7 @@ def lm_loss(params, tokens: torch.Tensor, cfg: TransformerConfig,
     the loss, as in the reference.
     """
     x, _, aux = forward(params, tokens, cfg)
-    labels = torch.roll(tokens.long(), -1, dims=1)
+    labels = _next_tokens(tokens.long())
     B, S, D = x.shape
     valid = (torch.arange(S, device=x.device) < S - 1).float()
     w = _unemb(params, cfg)
