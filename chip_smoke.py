@@ -418,7 +418,23 @@ Phases (any failure raises and the script exits non-zero):
               no DTensor), every beam in the trie; step ms (median of 3
               after a warm-up) and peak GB beside the card's name and power
               limit; one ``{"dryrun": ...}`` line.
-16. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
+16. examples — the five scripts of ``examples/*_torch.py`` through their
+              ``main(argv)`` on the card, after every timed phase:
+              quickstart (compliance), serve_constrained (compliance, 8
+              drained requests of 6 tokens), serve_multi_constraint (0 new
+              ``compile_events()`` across the post-swap serve, compliance
+              ok == total in both rounds, every post-swap result on store
+              version 2), train_retrieval (resumed at step 80, finished at
+              120, every loss finite; checkpoints under ``build/``, removed
+              after), cold_start_amazon ``--quick`` (every gate).  Counters
+              zeroed just before each and read just after: the kernel of
+              its searches launches exactly ``searches`` x the topk levels
+              of its policy's ``plan_info()`` on the warp route, and no
+              other VNTK kernel (none for train_retrieval).  quickstart and
+              serve_multi_constraint run again under ``--impl plain``:
+              beams and scores bit-equal.  Seconds and launches a script;
+              one ``{"examples": ...}`` line.
+17. report  — the card's ``nvidia-smi`` name and power limit, one JSON line
               with a row per kernel function (a VNTK row with the ``path``
               its main-path levels took, ``warp`` or ``block``, for topk
               and mask alike; phase 7's ``..._block`` rows; phase 3's
@@ -5248,6 +5264,111 @@ def phase_dryrun(args, kept, cells) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the five examples in torch form
+# ---------------------------------------------------------------------------
+# Each runs once through its ``main(argv)``, as a user starts it, with the
+# launch counters zeroed just before and read just after; the kernel an
+# example's searches take (None: no VNTK on its path, the training example)
+# must launch exactly ``searches`` x the topk levels of ``plan_info()``, on
+# the warp route, and no other VNTK kernel.  The two whose searches
+# ``--impl plain`` reaches run again under it: beams and scores bit-equal.
+# ``cold_start_amazon`` runs ``--quick``: phase 12 runs it at full size.
+EXAMPLES = {  # name: (argv, kernel of its searches, rerun under --impl plain)
+    "quickstart": ([], "vntk_topk", True),
+    "serve_constrained": ([], "vntk_topk", False),
+    "serve_multi_constraint": ([], "vntk_stacked_topk", True),
+    "train_retrieval": (None, None, False),  # argv: its build/ checkpoints
+    "cold_start_amazon": (["--quick"], "vntk_stacked_topk", False),
+}
+
+
+def load_example(name: str):
+    """``examples/<name>_torch.py`` as a module (``examples/`` is no
+    package)."""
+    import importlib.util
+
+    path = os.path.join(HERE, "examples", f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_example(name: str, res: dict) -> None:
+    """Each example's own claim."""
+    if name == "quickstart":
+        ok = res["compliance"] is True
+    elif name == "serve_constrained":
+        ok = res["compliance"] is True and res["lengths"] == [6] * 8
+    elif name == "serve_multi_constraint":
+        ok = (res["new_compiles"] == 0
+              and all(a == b for a, b in (res["compliance"],
+                                          res["compliance_after_swap"]))
+              and res["versions"] == [res["swap_version"]] == [2]
+              and res["batches_before_swap"] == 3 and res["searches"] == 5)
+    elif name == "train_retrieval":
+        ok = (res["resumed_step"] == 80 and res["final_step"] == 120
+              and len(res["losses"]) == 120
+              and bool(np.all(np.isfinite(res["losses"]))))
+    else:
+        ok = all(res["gates"].values())
+    if not ok:
+        shown = {k: v for k, v in res.items() if k not in ("beams", "scores")}
+        raise AssertionError(f"{name}: its check failed on {shown}")
+
+
+def phase_examples() -> tuple:
+    """Returns (summary, VNTK launches of the examples' runs by counter)."""
+    import shutil
+
+    from repro_torch.kernels import vntk as kv
+
+    ckpt = os.path.join(HERE, "build", "train_retrieval_ckpt")
+    out, total = {}, {k: 0 for k in kv.LAUNCHES}
+    for name, (argv, kernel, plain) in EXAMPLES.items():
+        mod = load_example(name)
+        argv = ["--ckpt-dir", ckpt] if argv is None else argv
+        kv.reset_launches()
+        t0 = time.time()
+        res = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        got = {k: v for k, v in kv.LAUNCHES.items() if v}
+        predicted = (0 if kernel is None else res["searches"]
+                     * sum(row["topk"] for row in res["plan"]))
+        want = {kernel: predicted} if predicted else {}
+        if got != want or any(kv.BLOCK_LAUNCHES.values()):
+            raise AssertionError(
+                f"{name}: VNTK launches {got} (block route "
+                f"{ {k: v for k, v in kv.BLOCK_LAUNCHES.items() if v} }), "
+                f"expected {want} on the warp route")
+        check_example(name, res)
+        for k, v in got.items():
+            total[k] += v
+        row = dict(seconds=seconds, launches=got, predicted=predicted,
+                   searches=res.get("searches", 0))
+        if plain:
+            kv.reset_launches()
+            t0 = time.time()
+            twin = mod.main(argv + ["--impl", "plain"])
+            row["plain_seconds"] = time.time() - t0
+            if any(kv.LAUNCHES.values()):
+                raise AssertionError(f"{name} --impl plain launched "
+                                     f"{kv.LAUNCHES}")
+            row["plain_bit_equal"] = bool(
+                np.array_equal(twin["beams"], res["beams"])
+                and np.array_equal(twin["scores"], res["scores"]))
+            if not row["plain_bit_equal"]:
+                raise AssertionError(f"{name}: beams under --impl plain "
+                                     "differ from the kernel's")
+        out[name] = row
+        log(f"  {name}: {json.dumps(row)}")
+        free_cuda()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return out, total
+
+
 def main() -> int:
     args = parse_args()
     if not torch.cuda.is_available():
@@ -5428,8 +5549,19 @@ def main() -> int:
     print(json.dumps({"dryrun": dryrun}), flush=True)
     log(f"  phase 15 took {dryrun['seconds']:.1f}s")
 
+    log("phase 16: the examples in torch form")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    examples, example_launches = phase_examples()
+    for k, n in example_launches.items():
+        launches[k] += n
+    peaks.append(torch.cuda.max_memory_allocated())
+    examples["seconds"] = time.time() - t0
+    print(json.dumps({"examples": examples}), flush=True)
+    log(f"  phase 16 took {examples['seconds']:.1f}s")
+
     peak = max(peaks)
-    log(f"phase 16: report ({time.time() - t_start:.1f}s total; peak device "
+    log(f"report ({time.time() - t_start:.1f}s total; peak device "
         f"memory {peak / 1e9:.1f} GB)")
     smi = subprocess.run(
         ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",

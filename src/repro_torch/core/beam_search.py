@@ -18,7 +18,6 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.vntk import NEG_INF, top_m
-from repro_torch.decoding.policy import as_policy
 
 __all__ = ["BeamState", "beam_search", "recall_at_k", "top_m"]
 
@@ -78,6 +77,8 @@ def beam_search(
     ``return_trace`` — ``trace`` is a :class:`BeamState` whose fields carry a
     leading step axis (the post-advance beams at every level).
     """
+    from repro_torch.decoding.policy import as_policy  # lazy: import cycle
+
     policy = as_policy(policy)
     if policy.requires_constraint_ids and constraint_ids is None:
         raise ValueError("ConstraintStore lookups need per-row constraint_ids")

@@ -22,8 +22,9 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["FlatTrie", "build_flat_trie", "pack_bits", "sorted_unique_sids",
-           "check_index_capacity", "LevelBlocks", "infer_level_blocks"]
+__all__ = ["FlatTrie", "build_flat_trie", "pack_bits", "unpack_bits_word",
+           "sorted_unique_sids", "check_index_capacity", "LevelBlocks",
+           "infer_level_blocks", "random_constraint_set"]
 
 
 def pack_bits(bits: np.ndarray) -> np.ndarray:
@@ -41,6 +42,13 @@ def pack_bits(bits: np.ndarray) -> np.ndarray:
     b = bits.reshape(bits.shape[:-1] + (-1, 8)).astype(np.uint8)
     weights = (1 << np.arange(8, dtype=np.uint8)).reshape((1,) * (b.ndim - 1) + (8,))
     return (b * weights).sum(axis=-1).astype(np.uint8)
+
+
+def unpack_bits_word(packed: np.ndarray, n: int) -> np.ndarray:
+    """Inverse of :func:`pack_bits`: the first ``n`` bits of each row."""
+    bits = (packed[..., :, None] >> np.arange(8, dtype=np.uint8)) & 1
+    bits = bits.reshape(packed.shape[:-1] + (-1,))
+    return bits[..., :n].astype(bool)
 
 
 @dataclasses.dataclass
@@ -342,3 +350,11 @@ def infer_level_blocks(row_pointers, edges, *, n_states: int, n_edges: int,
                               and int(tok.max()) >= vocab_size):
         raise ValueError("non-canonical CSR slab: edge tokens out of range")
     return LevelBlocks(edge_offsets, base, state_offsets)
+
+
+def random_constraint_set(
+    rng: np.random.Generator, n: int, vocab_size: int, length: int
+) -> np.ndarray:
+    """Uniform random constraint set (paper §5.3 scalability protocol):
+    ``(n, length)`` int64 SIDs, the reference's draw from the same ``rng``."""
+    return rng.integers(0, vocab_size, size=(n, length), dtype=np.int64)

@@ -30,7 +30,7 @@ CSR replicate either way.
 from __future__ import annotations
 
 import dataclasses
-from typing import Literal, Optional
+from typing import Literal, Optional, Protocol, runtime_checkable
 
 import torch
 
@@ -46,12 +46,65 @@ from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.core.vntk import candidate_width
 from repro_torch.kernels import ops as kernel_ops
 
-__all__ = ["Levels", "BACKENDS", "StaticBackend", "StackedStaticBackend",
-           "CpuTrieBackend", "PPVBackend", "HashBitmapBackend",
-           "UnconstrainedBackend"]
+__all__ = ["Impl", "Levels", "Rows", "ConstraintBackend", "BACKENDS",
+           "StaticBackend", "StackedStaticBackend", "CpuTrieBackend",
+           "PPVBackend", "HashBitmapBackend", "UnconstrainedBackend"]
 
+# Which formulation runs the sparse levels: ``None`` (the CUDA kernels on a
+# CUDA tensor, the plain versions on a CPU one) or ``"plain"``.  The
+# reference's values are ``"xla"``/``"pallas"``.
+Impl = Literal[kernel_ops.IMPLS]
 Levels = Literal["auto", "dense", "sparse"]
 Rows = Literal["replicated", "model"]
+
+
+@runtime_checkable
+class ConstraintBackend(Protocol):
+    """Protocol every constraint backend implements (DESIGN.md §5), over
+    torch tensors; ``repro.decoding.ConstraintBackend``'s contract.
+
+    Static metadata (read by the policy, stable across hot swaps):
+      * ``sid_length``       — SID length the backend was built for (``None``
+                               for the unconstrained lower bound);
+      * ``supports_fused``   — has a ``fused_step`` that folds the Phase-1
+                               log-softmax into the masking pass;
+      * ``supports_stacked`` — consumes per-row ``constraint_ids``;
+      * ``needs_prefix``     — consumes the emitted-token history instead of
+                               trie states;
+      * ``supports_topk``    — has a candidate-compressed ``topk_step``
+                               (DESIGN.md §8) emitting per-beam ``(scores,
+                               tokens, next_states)`` of width ``C``;
+                               ``topk_at(step)`` gates it per level.
+                               Backends without it take the vocab-aligned
+                               path in ``beam_search``.
+    """
+
+    sid_length: Optional[int]
+    supports_fused: bool
+    supports_stacked: bool
+    needs_prefix: bool
+    supports_topk: bool
+
+    def mask_step(
+        self,
+        log_probs: torch.Tensor,  # (..., V) normalized log-probs
+        nodes: torch.Tensor,  # (...,) int32 per-beam states
+        step: int,  # decode level
+        *,
+        prefix_tokens: Optional[torch.Tensor] = None,  # (..., L) history
+        constraint_ids: Optional[torch.Tensor] = None,  # (...,) int32 ids
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Phase 2 of Alg. 1: ``(masked_lp, next_dense)``, both
+        vocab-aligned ``(..., V)``; ``next_dense[..., v] == 0`` iff emitting
+        ``v`` is invalid."""
+        ...
+
+    def shardings(self, mesh, *, rows: Rows = "replicated"):
+        """The backend with a spec in place of every tensor (DESIGN.md §6):
+        ``rows="replicated"`` replicates every table (paper §A.3);
+        ``rows="model"`` row-shards the CSR ``edges`` along the mesh's
+        ``model`` axis.  Backends without a CSR replicate either way."""
+        ...
 
 
 def _check_rows(rows: str) -> None:
@@ -133,7 +186,7 @@ class StaticBackend:
 
     tm: TransitionMatrix
     slab: Optional[CompressedSlab] = None
-    impl: Optional[str] = None
+    impl: Impl = None
     fused: bool = False
     levels: Levels = "auto"
 
@@ -266,7 +319,7 @@ class StackedStaticBackend:
 
     store: ConstraintStore
     slab: Optional[CompressedSlab] = None
-    impl: Optional[str] = None
+    impl: Impl = None
     fused: bool = False
     levels: Levels = "auto"
 

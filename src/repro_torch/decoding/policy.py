@@ -30,6 +30,7 @@ from repro_torch.decoding.backends import (
     BACKENDS,
     CpuTrieBackend,
     HashBitmapBackend,
+    Impl,
     PPVBackend,
     StackedStaticBackend,
     StaticBackend,
@@ -342,7 +343,7 @@ class DecodePolicy:
 
     # -- factories ---------------------------------------------------------
     @classmethod
-    def static(cls, tm, *, impl: Optional[str] = None, fused: bool = False,
+    def static(cls, tm, *, impl: Impl = None, fused: bool = False,
                topk: bool = True, compressed: bool = False) -> "DecodePolicy":
         """STATIC plan: dense bit-packed lookups for levels < ``dense_d``,
         the VNTK (optionally ``fused``) for the deeper levels; ``topk`` runs
@@ -356,7 +357,7 @@ class DecodePolicy:
         return cls._plan(StaticBackend, tm, impl, fused, topk, compressed)
 
     @classmethod
-    def stacked(cls, store: ConstraintStore, *, impl: Optional[str] = None,
+    def stacked(cls, store: ConstraintStore, *, impl: Impl = None,
                 fused: bool = False, topk: bool = True,
                 compressed: bool = False) -> "DecodePolicy":
         """Multi-tenant STATIC plan over a stacked ConstraintStore."""

@@ -177,6 +177,11 @@ class Trainer:
                 log(f"step {self.step}: loss {loss:.4f} "
                     f"({np.mean(self.step_times[-self.cfg.log_every:]):.3f}s/step)")
             self.maybe_checkpoint()
+        self.wait_checkpoint()
+        return losses
+
+    def wait_checkpoint(self) -> None:
+        """Block until the outstanding async checkpoint write is on disk
+        (re-raising its error); a no-op for synchronous checkpoints."""
         if self._ckpt is not None:
             self._ckpt.wait()
-        return losses

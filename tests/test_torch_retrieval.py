@@ -84,9 +84,14 @@ def test_is_member_walks_sorted_sids():
 IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 
 
+EXAMPLES_TORCH = ("quickstart", "serve_constrained", "serve_multi_constraint",
+                  "train_retrieval", "cold_start_amazon")
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "examples" / f"{n}_torch.py" for n in EXAMPLES_TORCH]
     assert len(files) > 20
     offenders = {str(f.relative_to(ROOT)): IMPORT.findall(f.read_text())
                  for f in files}
@@ -94,9 +99,17 @@ def test_port_imports_neither_jax_nor_the_reference():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys, pkgutil, importlib, repro_torch\n"
+    code = ("import sys, pkgutil, importlib, importlib.util, repro_torch\n"
             "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "from repro_torch.core import beam_search, BeamState, recall_at_k, "
+            "FlatTrie, build_flat_trie, random_constraint_set\n"
+            "from repro_torch.decoding import ConstraintBackend, Impl, Rows\n"
+            "assert callable(beam_search)\n"
+            f"for n in {EXAMPLES_TORCH!r}:\n"
+            "    spec = importlib.util.spec_from_file_location(\n"
+            f"        n, {str(ROOT / 'examples')!r} + f'/{{n}}_torch.py')\n"
+            "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert not any(k == 'repro' or k.startswith('repro.') "
             "for k in sys.modules)\n")

@@ -54,6 +54,19 @@ TINY = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: pytest-xdist runs several workers on the same
+    cores, where these training loops of small ops slow down many times over
+    when every worker's intra-op threads compete for them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _tiny(**extra):
     return get_default_registry().resolve(
         "cold_start_amazon", overrides={**TINY, **extra}, seed=0,
