@@ -1668,6 +1668,8 @@ def profile_retrieve(retrieve, retrieve_ms, kernel="vntk"):
     share and recorded launches are reported."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from repro_torch.observability import SPANS
+
     traced = []  # the active step's events (the profiler clears them after)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
@@ -1682,9 +1684,9 @@ def profile_retrieve(retrieve, retrieve_ms, kernel="vntk"):
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0))
 
-    rows = [e for e in traced[0]  # kernels, not the step's GPU-side span
+    rows = [e for e in traced[0]  # kernels, not the GPU-side spans
             if str(e.device_type).endswith("CUDA") and dev_us(e) > 0
-            and not e.key.startswith("ProfilerStep")]
+            and not e.key.startswith("ProfilerStep") and e.key not in SPANS]
     busy = sum(dev_us(e) for e in rows) / 1e6
     if not rows:
         log("  profile: no device time recorded (not measured)")

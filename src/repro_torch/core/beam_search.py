@@ -9,6 +9,11 @@ nodes for STATIC, the emitted tokens for the §5.2 baselines), advanced by a
 Top-M selection keeps ``jax.lax.top_k``'s order: ties go to the lower flat
 index.  ``torch.topk`` promises no tie order, so selection is a stable
 descending sort (:func:`top_m`).
+
+Each level's parts are spans of a profiler trace (``decode_step``,
+``constraint_step``, ``beam_select``, ``cache_reorder``, each with its
+``level``; :data:`repro_torch.observability.SPANS`), no-ops when no
+profiler records.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.vntk import NEG_INF, top_m
+from repro_torch.observability.profiling import annotate
 
 __all__ = ["BeamState", "beam_search", "recall_at_k", "top_m"]
 
@@ -104,38 +110,46 @@ def beam_search(
             logits = first_logits[:, None, :].expand(
                 B, M, first_logits.shape[-1])
         else:
-            last = (state.tokens[:, :, step - 1] if step > 0 else
-                    torch.zeros((B, M), dtype=torch.int32, device=device))
-            logits, carry = logits_fn(carry, last, step)  # (B, M, V)
+            with annotate("decode_step", level=step):
+                last = (state.tokens[:, :, step - 1] if step > 0 else
+                        torch.zeros((B, M), dtype=torch.int32,
+                                    device=device))
+                logits, carry = logits_fn(carry, last, step)  # (B, M, V)
         V = logits.shape[-1]
-        if policy.supports_topk_at(step):
-            # candidate-compressed advance (DESIGN.md §8): the lists carry
-            # the dense rows' top-C in flat-index tie order, C >= min(M, V)
-            C = policy.candidate_width(M, step)
-            c_lp, c_tok, c_next = policy.step_topk(
-                logits, state.nodes, step, C, constraint_ids=cids_bm)
-            total = state.scores[:, :, None] + c_lp  # (B, M, C)
-            top_scores, top_idx = top_m(total.reshape(B, M * C), M)
-            beam_idx = top_idx // C
-            token = c_tok.reshape(B, M * C).gather(1, top_idx)
-            new_nodes = c_next.reshape(B, M * C).gather(1, top_idx)
-        else:
-            lp, next_dense = policy.step(
-                logits, state.nodes, step, constraint_ids=cids_bm,
-                prefix_tokens=state.tokens if policy.needs_prefix else None)
-            total = state.scores[:, :, None] + lp  # (B, M, V)
-            top_scores, top_idx = top_m(total.reshape(B, M * V), M)
-            beam_idx = top_idx // V
-            token = (top_idx % V).to(torch.int32)
-            new_nodes = next_dense[batch_ix, beam_idx, token.long()]
-        new_tokens = state.tokens[batch_ix, beam_idx]  # (B, M, L)
-        new_tokens[:, :, step] = token
-        state = BeamState(tokens=new_tokens, scores=top_scores,
-                          nodes=new_nodes.to(torch.int32))
+        topk = policy.supports_topk_at(step)
+        with annotate("constraint_step", level=step):
+            if topk:
+                # candidate-compressed advance (DESIGN.md §8): the lists
+                # carry the dense rows' top-C in flat-index tie order,
+                # C >= min(M, V)
+                C = policy.candidate_width(M, step)
+                lp, c_tok, c_next = policy.step_topk(
+                    logits, state.nodes, step, C, constraint_ids=cids_bm)
+            else:
+                lp, next_dense = policy.step(
+                    logits, state.nodes, step, constraint_ids=cids_bm,
+                    prefix_tokens=(state.tokens if policy.needs_prefix
+                                   else None))
+        with annotate("beam_select", level=step):
+            W = lp.shape[-1]  # C candidates a beam, or the V dense tokens
+            total = state.scores[:, :, None] + lp  # (B, M, W)
+            top_scores, top_idx = top_m(total.reshape(B, M * W), M)
+            beam_idx = top_idx // W
+            if topk:
+                token = c_tok.reshape(B, M * W).gather(1, top_idx)
+                new_nodes = c_next.reshape(B, M * W).gather(1, top_idx)
+            else:
+                token = (top_idx % V).to(torch.int32)
+                new_nodes = next_dense[batch_ix, beam_idx, token.long()]
+            new_tokens = state.tokens[batch_ix, beam_idx]  # (B, M, L)
+            new_tokens[:, :, step] = token
+            state = BeamState(tokens=new_tokens, scores=top_scores,
+                              nodes=new_nodes.to(torch.int32))
         if return_trace:
             trace.append(state)
         if carry_gather_fn is not None and step < length - 1:
-            carry = carry_gather_fn(carry, beam_idx)
+            with annotate("cache_reorder", level=step):
+                carry = carry_gather_fn(carry, beam_idx)
     if return_trace:
         stacked = BeamState(*(torch.stack([getattr(s, f.name) for s in trace])
                               for f in dataclasses.fields(BeamState)))

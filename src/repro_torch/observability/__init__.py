@@ -15,6 +15,7 @@ from repro_torch.observability.metrics import (
     start_http_server,
 )
 from repro_torch.observability.profiling import (
+    SPANS,
     annotate,
     maybe_trace,
     named_scope,
@@ -39,6 +40,7 @@ __all__ = [
     "StepStats",
     "StepTimer",
     "compile_events",
+    "SPANS",
     "annotate",
     "named_scope",
     "trace_capture",

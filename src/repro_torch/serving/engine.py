@@ -467,7 +467,8 @@ class ServingEngine:
             c0 = compile_events()
             try:
                 fire("decode.slow_step")  # delay => slow batch; error => fail
-                with annotate("serve_batch"):
+                with annotate("serve_batch", batch=len(batch),
+                              requests=(r.rid for r in batch)):
                     beams, scores = self.retriever.retrieve(
                         hist,
                         constraint_ids=cids if num_sets is not None else None,

@@ -5,7 +5,9 @@ Counterpart of ``repro.serving.generative_retrieval``:
 the request's KV cache across the ``M`` beams, then runs the constrained
 beam search of Algorithm 1 over SID tokens.  The prefill's last-position
 logits stand in for step 0, so a retrieve runs ``L - 1`` decode steps and
-``L - 1`` beam reorders of the cache.
+``L - 1`` beam reorders of the cache.  Under a profiler, ``prefill``,
+``cache_tile`` (the tiling) and ``device_fetch`` (the host waiting for the
+beams) are spans beside the search's own.
 
 The policy may be any of the paper's §5.2 baselines (CPU trie, DISC-PPV,
 hash bitmap) or ``None`` (unconstrained): they serve through the same path.
@@ -36,6 +38,7 @@ from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.beam_search import beam_search
 from repro_torch.decoding import as_policy
 from repro_torch.models import transformer
+from repro_torch.observability.profiling import annotate
 from repro_torch.observability.timing import record_specialization
 
 __all__ = ["GenerativeRetriever"]
@@ -113,7 +116,8 @@ class GenerativeRetriever:
             if cids is not None:
                 cids = torch.as_tensor(cids, device=self.device)
             tokens, scores = self._retrieve(hist, cids)
-            return tokens.cpu().numpy(), scores.cpu().numpy()
+            with annotate("device_fetch"):  # the host waits for the device
+                return tokens.cpu().numpy(), scores.cpu().numpy()
 
     def _retrieve(self, history: torch.Tensor, constraint_ids=None,
                   policy=None):
@@ -121,12 +125,14 @@ class GenerativeRetriever:
         (default ``self.policy``)."""
         B, S = history.shape
         M, V = self.M, self.V
-        pre_logits, cache = transformer.prefill(
-            self.params, history, self.cfg, max_len=S + self.L + 1)
+        with annotate("prefill"):
+            pre_logits, cache = transformer.prefill(
+                self.params, history, self.cfg, max_len=S + self.L + 1)
         # tile the request cache across beams: (L, B, ...) -> (L, B*M, ...)
-        cache = dataclasses.replace(
-            cache, k=cache.k.repeat_interleave(M, dim=1),
-            v=cache.v.repeat_interleave(M, dim=1))
+        with annotate("cache_tile"):
+            cache = dataclasses.replace(
+                cache, k=cache.k.repeat_interleave(M, dim=1),
+                v=cache.v.repeat_interleave(M, dim=1))
 
         def logits_fn(c, last_tokens, step):
             logits, c = transformer.decode_step(
