@@ -451,6 +451,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1370,6 +1371,74 @@ def phase_attention(rng):
         raise AssertionError("bf16 attention products differ from the CPU's")
 
 
+DECODE_ATTN_SOURCE = "src/repro_torch/kernels/csrc/decode_attention.cu"
+DECODE_ATTN_ROWS = (140, 560)  # beam rows of a retrieve at B = 2 and B = 8
+
+
+def phase_decode_attention(rng):
+    """The decode-attention kernel at the main path's shapes (static-gr-3b:
+    265 cache slots, 8 KV heads, G = 3, Dh = 128, bf16; 140 and 560 beam
+    rows) against its plain version on the card, timed beside the plain
+    version and SDPA (``library_ms``, timed here only: the port never calls
+    it).  Bound: K and V read once, q and the output once, at 3.35 TB/s.
+
+    Tolerance as in :func:`phase_attention`: the kernel sums the scores and
+    the PV product in another order than cuBLAS, so a probability near a
+    bf16 rounding boundary can round the other way, and the output's own
+    bf16 rounding can then flip: 1e-4 on average, at most 2**-6 per
+    element.  Returns one report row per shape (the main paths' launches
+    are counted per path: :func:`decode_path`)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+
+    S, KVH, G, Dh = 265, 8, 3, 128
+    H = KVH * G
+    rows = []
+    for n in DECODE_ATTN_ROWS:
+        def bf16(*shape):
+            return torch.from_numpy(rng.normal(size=shape).astype(
+                np.float32)).to(torch.bfloat16).cuda()
+
+        q, k, v = bf16(n, 1, H, Dh), bf16(n, S, KVH, Dh), bf16(n, S, KVH, Dh)
+        pos = torch.full((S,), -1, dtype=torch.int32, device="cuda")
+        pos[:S - 1] = torch.arange(S - 1, dtype=torch.int32, device="cuda")
+        cur = S - 2  # the last decode step: one empty slot, as in a retrieve
+        got = ops.decode_attention(q, k, v, pos, cur)
+        want = ops.decode_attention(q, k, v, pos, cur, impl="plain")
+        d = (got.float() - want.float()).abs()
+        err, mean = float(d.max()), float(d.mean())
+        if err > 2.0 ** -6 or mean >= 1e-4:
+            raise AssertionError(f"decode_attention at {n} rows: max/mean abs "
+                                 f"diff {err:g}/{mean:g} against plain")
+        mask = ((pos >= 0) & (pos <= cur)).view(1, 1, 1, S)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        before = da.LAUNCHES["decode_attention"]
+        ms = device_ms(lambda: ops.decode_attention(q, k, v, pos, cur))
+        if da.LAUNCHES["decode_attention"] == before:
+            raise AssertionError("the timed calls launched no kernel")
+        cur_t = torch.full((n,), cur, device="cuda")  # no copy in a graph
+        plain_ms = device_ms(lambda: ops.decode_attention(
+            q, k, v, pos, cur_t, impl="plain"))
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+        nbytes = 2 * (k.numel() + v.numel() + q.numel() + got.numel())
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  decode_attention rows={n}: {ms * 1e3:.2f} us (bound "
+            f"{bound * 1e3:.2f}, {bound / ms:.1%}), plain "
+            f"{plain_ms * 1e3:.2f} us, SDPA {library_ms * 1e3:.2f} us; max/"
+            f"mean abs diff {err:g}/{mean:g}")
+        rows.append(dict(
+            name=f"decode_attention_rows{n}", route="cuda",
+            source=DECODE_ATTN_SOURCE, replaces=None, path=da.route(S),
+            launches=None,
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes", library_ms=library_ms,
+            library="F.scaled_dot_product_attention"))
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: the main paths
 # ---------------------------------------------------------------------------
@@ -1418,6 +1487,57 @@ def run_policies(policies, make_retriever, hists, check, n_sparse):
             f"{median_ms[name]:.2f} ms over {len(lat)} batches; 100% "
             f"compliance; {counter} launched {n_sparse} times per retrieve")
     return first, median_ms
+
+
+def decode_launches() -> int:
+    from repro_torch.kernels import decode_attention as da
+
+    return da.LAUNCHES["decode_attention"]
+
+
+DECODE_PATHS = {}  # path -> its decode_attention launches, from its own run
+
+
+@contextlib.contextmanager
+def decode_path(name: str, decodes: bool = True):
+    """Decode attention on one path: its kernel's launches, from the counter
+    set to 0 here, go to ``DECODE_PATHS[name]``; a call of the plain version
+    with a query on the card raises (the port's paths never ask for it, and
+    the dispatch never falls back).  ``decodes``: the path must launch."""
+    from repro_torch.kernels import decode_attention as da
+
+    plain, on_card = da.decode_attention_plain, []
+
+    def counted(q, *args, **kw):
+        if q.is_cuda:
+            on_card.append(tuple(q.shape))
+        return plain(q, *args, **kw)
+
+    da.reset_launches()
+    da.decode_attention_plain = counted
+    try:
+        yield
+    finally:
+        da.decode_attention_plain = plain
+    n = DECODE_PATHS[name] = decode_launches()
+    if on_card:
+        raise AssertionError(f"{name}: decode attention's plain version ran "
+                             f"on the card {len(on_card)} times")
+    if decodes and n == 0:
+        raise AssertionError(f"{name}: decode attention never launched")
+    log(f"  decode_attention on {name}: {n} launches, no plain call")
+
+
+def check_decode_launches(before, retrieves, cfg, L):
+    """Every decode step's attention went through the kernel: one launch a
+    layer and step, ``n_layers * (L - 1)`` a retrieve."""
+    rose = decode_launches() - before
+    if rose != retrieves * cfg.n_layers * (L - 1):
+        raise AssertionError(f"decode_attention launched {rose} times in "
+                             f"{retrieves} retrieves, expected "
+                             f"{cfg.n_layers * (L - 1)} each")
+    log(f"  decode_attention launched {cfg.n_layers * (L - 1)} times per "
+        "retrieve")
 
 
 def plain_policy(policy):
@@ -1502,8 +1622,10 @@ def phase_single(args, rng, params, cfg, idx):
         return r.retrieve
 
     kv.reset_launches()  # the single path's run starts here
+    decodes = decode_launches()
     first, median_ms = run_policies(policies, make, hists, check, L - tm.dense_d)
     launches = dict(kv.LAUNCHES)  # ... and ends here
+    check_decode_launches(decodes, len(policies) * len(hists), cfg, L)
     for _, counter in policies.values():
         if launches[counter] == 0:
             raise AssertionError(f"{counter} never launched on the single path")
@@ -1586,8 +1708,10 @@ def phase_stacked(args, rng, params, cfg, idx):
 
     n_sparse = L - store.dense_d
     kv.reset_launches()  # the stacked path's run starts here
+    decodes = decode_launches()
     first, median_ms = run_policies(policies, make, hists, check, n_sparse)
     launches = dict(kv.LAUNCHES)  # ... and ends here
+    check_decode_launches(decodes, len(policies) * len(hists), cfg, L)
     for _, counter in policies.values():
         if launches[counter] == 0:
             raise AssertionError(f"{counter} never launched on the stacked "
@@ -4780,6 +4904,7 @@ def spmd_rank(rank: int, root: str, seed: int) -> None:
     from repro_torch.core.transition_matrix import TransitionMatrix
     from repro_torch.decoding import DecodePolicy
     from repro_torch.distributed import collectives
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import vntk as kv
     from repro_torch.launch.mesh import make_subset_mesh
     from repro_torch.models import transformer
@@ -4806,9 +4931,11 @@ def spmd_rank(rank: int, root: str, seed: int) -> None:
             edges = r.policy.backends[-1].tm.edges
             torch.cuda.synchronize()
             kv.reset_launches()  # the retrieves of this mesh start here
+            da.reset_launches()
             with collectives.recording() as log:
                 beams, scores = r.retrieve(hists[0])
             launches = {k: n for k, n in kv.LAUNCHES.items() if n}
+            decodes = da.LAUNCHES["decode_attention"]
             lat = []
             for hist in hists[1:]:
                 t0 = time.perf_counter()
@@ -4817,7 +4944,7 @@ def spmd_rank(rank: int, root: str, seed: int) -> None:
             out[f"{tag}_beams"], out[f"{tag}_scores"] = beams, scores
             stats[tag] = dict(
                 rows=rows, launches=launches, collectives=log.summary(),
-                edges_rows=int(edges.shape[0]),
+                decode_launches=decodes, edges_rows=int(edges.shape[0]),
                 edges_bytes=int(edges.untyped_storage().nbytes()),
                 median_ms=float(np.median(lat)))
             del r, edges
@@ -4939,8 +5066,10 @@ def phase_spmd(args, kept):
         single = GenerativeRetriever(params, cfg, pol, L, V, beam_size=M)
         torch.cuda.synchronize()
         kv.reset_launches()  # the SPMD retrieves start here
+        decodes = decode_launches()
         got = [spmd.retrieve(h, cids) for h in hists]
         launches = {k: n for k, n in kv.LAUNCHES.items() if n}  # ... end
+        check_decode_launches(decodes, len(hists), cfg, L)
         if launches != {"vntk_stacked_topk": n_sparse * len(hists)}:
             raise AssertionError(f"(a) SpmdRetriever launches {launches}")
         for i, h in enumerate(hists):
@@ -5016,6 +5145,11 @@ def phase_spmd(args, kept):
                              ranks[r][f"{tag}_beams"],
                              ranks[r][f"{tag}_scores"])
             reduces = st["collectives"]["counts_by_op"].get("all-reduce", 0)
+            if st["decode_launches"] != cfg.n_layers * (L - 1):
+                raise AssertionError(
+                    f"(b) {tag} rank {r}: decode_attention launched "
+                    f"{st['decode_launches']} times in one retrieve, "
+                    f"expected {cfg.n_layers * (L - 1)}")
             if tag == "2x1":
                 ok = (st["launches"] == {"vntk_topk": n_sparse}
                       and reduces == 0
@@ -5040,6 +5174,8 @@ def phase_spmd(args, kept):
             f"{stats[0][tag]['collectives']}")
     out["b_seconds"] = time.time() - t0
     child_launches = sum(s["2x1"]["launches"]["vntk_topk"] for s in stats)
+    DECODE_PATHS["spmd ranks (phase 14b)"] = sum(
+        s[tag]["decode_launches"] for s in stats for tag in want)
     del params, tm, want
     free_cuda()
     return out, spmd_launches, child_launches
@@ -5415,6 +5551,8 @@ def main() -> int:
         np.random.default_rng([args.seed, 26]), M)  # later phases unmoved
     phase_golden()
     phase_attention(rng)
+    attn_rows = phase_decode_attention(
+        np.random.default_rng([args.seed, 32]))  # later phases unmoved
 
     cfg = static_gr.CONFIG
     t0 = time.time()
@@ -5424,23 +5562,27 @@ def main() -> int:
         f"{cfg.param_count() / 1e9:.2f}B params in {cfg.dtype} "
         f"({time.time() - t0:.1f}s init)")
     log("phase 4: single-matrix path")
-    launches, single = phase_single(args, rng, params, cfg, idx)
+    with decode_path("single (phase 4)"):
+        launches, single = phase_single(args, rng, params, cfg, idx)
     log("phase 4b: HBM/host tiering of the single trie")
     t0 = time.time()
-    tiering, tier_launches = phase_tiering(args, single, idx)
+    with decode_path("tiering (phase 4b)"):
+        tiering, tier_launches = phase_tiering(args, single, idx)
     for k, n in tier_launches.items():
         launches[k] += n
     tiering["seconds"] = time.time() - t0
     print(json.dumps({"tiering": tiering}), flush=True)
     log(f"  phase 4b took {tiering['seconds']:.1f}s")
     log("phase 5: stacked path")
-    stacked = phase_stacked(args, rng, params, cfg, idx)
+    with decode_path("stacked (phase 5)"):
+        stacked = phase_stacked(args, rng, params, cfg, idx)
     launches.update({k: v for k, v in stacked.items() if "stacked" in k})
     gc.collect()  # phase 5's retrievers and slabs
     torch.cuda.empty_cache()
     log("phase 5b: the prefix-shared GR decode step")
     t0 = time.time()
-    shared = phase_shared_prefix(args, params, cfg, idx)
+    with decode_path("shared prefix (phase 5b)"):
+        shared = phase_shared_prefix(args, params, cfg, idx)
     shared["seconds"] = time.time() - t0
     print(json.dumps({"shared_prefix": shared}), flush=True)
     log(f"  phase 5b took {shared['seconds']:.1f}s")
@@ -5448,7 +5590,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 6: batch serving with a live catalog refresh")
     t0 = time.time()
-    engine, engine_launches = phase_engine(args, params, cfg, idx)
+    with decode_path("engine (phase 6)"):
+        engine, engine_launches = phase_engine(args, params, cfg, idx)
     launches["vntk_stacked_topk"] += engine_launches
     engine["seconds"] = time.time() - t0
     print(json.dumps({"engine": engine}), flush=True)
@@ -5457,7 +5600,9 @@ def main() -> int:
     log("phase 7: continuous batching over the level-free mask")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    cont, cont_rows, block, wide = phase_continuous(args, params, cfg, idx)
+    with decode_path("continuous (phase 7)"):
+        cont, cont_rows, block, wide = phase_continuous(args, params, cfg,
+                                                        idx)
     cont["seconds"] = time.time() - t0
     peaks.append(torch.cuda.max_memory_allocated())
     cont["peak_gb"] = peaks[-1] / 1e9
@@ -5473,9 +5618,10 @@ def main() -> int:
     t0 = time.time()
     table_rng = np.random.default_rng([args.seed, 6])  # later phases unmoved
     policies, cut, tm_cut = baseline_policies(table_rng, idx)
-    table1 = phase_table1(table_rng, idx, policies, cut, tm_cut)
-    phase_baseline_retrieve(single, policies, idx, tm_cut, table1,
-                            probe_seed=args.seed + 1)
+    with decode_path("Table 1 baselines (phase 8)"):
+        table1 = phase_table1(table_rng, idx, policies, cut, tm_cut)
+        phase_baseline_retrieve(single, policies, idx, tm_cut, table1,
+                                probe_seed=args.seed + 1)
     table1["seconds"] = time.time() - t0
     print(json.dumps({"table1": table1}), flush=True)
     log(f"  phase 8 took {table1['seconds']:.1f}s")
@@ -5518,7 +5664,8 @@ def main() -> int:
     log(f"  phase 11 took {training['seconds']:.1f}s")
     log("phase 12: scenarios at full size")
     t0 = time.time()
-    scenarios, scenario_topk = phase_scenarios(args)
+    with decode_path("scenarios (phase 12)"):
+        scenarios, scenario_topk = phase_scenarios(args)
     launches["vntk_stacked_topk"] += scenario_topk
     print(json.dumps({"scenarios": scenarios}), flush=True)
     log(f"  phase 12 took {time.time() - t0:.1f}s")
@@ -5526,7 +5673,8 @@ def main() -> int:
     log(f"phase 13: the other model families at full width ("
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated)")
     t0 = time.time()
-    families = phase_families(args)
+    with decode_path("families (phase 13)"):
+        families = phase_families(args)
     families["seconds"] = time.time() - t0
     peaks.append(max(v["peak_gb"] for v in families.values()
                      if isinstance(v, dict)) * 1e9)
@@ -5534,7 +5682,8 @@ def main() -> int:
     log(f"  phase 13 took {families['seconds']:.1f}s")
     log("phase 14: SPMD serving over a process mesh")
     t0 = time.time()
-    spmd, spmd_launches, child_launches = phase_spmd(args, kept)
+    with decode_path("spmd, this process (phase 14)"):
+        spmd, spmd_launches, child_launches = phase_spmd(args, kept)
     launches["vntk_stacked_topk"] += spmd_launches
     launches["vntk_topk"] += child_launches
     spmd["seconds"] = time.time() - t0
@@ -5545,7 +5694,8 @@ def main() -> int:
     log("phase 15: the multi-pod dry run")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    dryrun = phase_dryrun(args, kept, dry_cells)
+    with decode_path("dry run (phase 15)", decodes=False):
+        dryrun = phase_dryrun(args, kept, dry_cells)
     peaks.append(torch.cuda.max_memory_allocated())
     dryrun["seconds"] = time.time() - t0
     print(json.dumps({"dryrun": dryrun}), flush=True)
@@ -5554,7 +5704,8 @@ def main() -> int:
     log("phase 16: the examples in torch form")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    examples, example_launches = phase_examples()
+    with decode_path("examples (phase 16)"):
+        examples, example_launches = phase_examples()
     for k, n in example_launches.items():
         launches[k] += n
     peaks.append(torch.cuda.max_memory_allocated())
@@ -5590,7 +5741,9 @@ def main() -> int:
             plain_ms=float(plain_ms), bound_ms=float(bound), bound_by="bytes",
             library_ms=None, path="block", reread_ms=float(chk.reread[0])))
     rows += bag_report(bag_rows + fm_rows, bag_launches)
+    rows += attn_rows  # timed at their shapes; launches are per path:
     print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"decode_attention_launches": DECODE_PATHS}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
-"""Dispatch of the VNTK step and the embedding bag to the CUDA kernels or
-their plain versions.
+"""Dispatch of the VNTK step, the embedding bag and decode attention to the
+CUDA kernels or their plain versions.
 
 ``impl``:
   * ``None``    — by the tensor's device: a CUDA tensor launches the kernel
@@ -12,18 +12,24 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import decode_attention as _attn
 from repro_torch.kernels import embedding_bag as _bag
 from repro_torch.kernels import vntk as _k
 
 __all__ = ["vntk", "vntk_fused_logsoftmax", "vntk_topk", "vntk_compressed",
-           "vntk_compressed_topk", "embedding_bag", "embedding_bag_grouped"]
+           "vntk_compressed_topk", "embedding_bag", "embedding_bag_grouped",
+           "decode_attention"]
 
 IMPLS = (None, "plain")
 
 
-def _use_kernel(t, impl) -> bool:
+def _check_impl(impl) -> None:
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+
+
+def _use_kernel(t, impl) -> bool:
+    _check_impl(impl)
     if impl == "plain" or t.device.type == "cpu":
         return False
     if t.device.type == "cuda":
@@ -129,3 +135,20 @@ def embedding_bag_grouped(tables, indices, mode: str = "sum", impl=None):
     if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
         return _bag._BagGrouped.apply(indices, mode, *tables)
     return _bag.embedding_bag_grouped_cuda(tables, indices, mode)
+
+
+def decode_attention(q, k_cache, v_cache, slot_positions, cur_pos, *,
+                     window=None, scale=None, impl=None):
+    """Single-token GQA attention over a ``(B, S, KVH, D)`` KV cache,
+    slot-validity masked (``models/attention.decode_attention``): on a CUDA
+    tensor one call of the kernel, which reads the cache in place (and
+    raises on a tensor subclass).  A ``meta`` tensor, a ``DTensor`` over
+    meta shards included, takes the plain version, whose ops the multi-pod
+    dry run traces for shapes, collectives and FLOPs (``launch/dryrun.py``)."""
+    _check_impl(impl)
+    if q.is_meta or not _use_kernel(q, impl):
+        return _attn.decode_attention_plain(q, k_cache, v_cache,
+                                            slot_positions, cur_pos,
+                                            window=window, scale=scale)
+    return _attn.decode_attention_cuda(q, k_cache, v_cache, slot_positions,
+                                       cur_pos, window=window, scale=scale)

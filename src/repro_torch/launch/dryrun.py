@@ -49,7 +49,8 @@ seeded ``torch.Generator``, integers 0 (a valid id for every lookup, an
 empty trie row) unless the caller passes them (:func:`run_one`).  It times
 the step after a warm-up call and records the argument bytes the allocator
 holds beside what the same cell predicts at (1, 1), and the allocator's
-peak.
+peak.  On the card a cell whose step reaches decode attention raises there
+(its kernel takes no ``DTensor``; ``launch/steps.py``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun              # everything

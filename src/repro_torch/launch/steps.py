@@ -21,7 +21,11 @@ Step kinds:
 
 Each step calls the port's own model functions on the plain route (a
 CUDA kernel launch cannot take a meta tensor or a ``DTensor``), as the
-reference's cells take its plain scatter and gathers.  The train steps take
+reference's cells take its plain scatter and gathers.  Decode attention
+takes no ``impl``: over meta shards it runs its plain ops, and over CUDA
+shards (``--mesh one`` on the card) its kernel raises, so an LM decode
+cell that reaches it (GQA, cache written eagerly) runs in a world of one
+on the CPU only.  The train steps take
 their gradients with ``torch.autograd.grad`` and update the parameters and
 AdamW moments in place (:mod:`repro_torch.training.optimizer`); they return
 them, as the reference's return the new ones.

@@ -7,55 +7,19 @@ reference's ``(B, S, KVH, Dh)`` layout at the public functions.  GQA is a
 operands' values (``preferred_element_type=float32`` there): the score
 product is float32 before the scale and the softmax, the probabilities are
 cast to the value dtype, the PV product is float32 again, and the output is
-cast back to the query dtype at the end.  On the card a bf16 product asks
-cuBLAS for a float32 result (``torch.bmm(..., out_dtype=torch.float32)``,
-with a backward of its own under autograd); elsewhere the operands are
-upcast, which keeps their values exactly.
+cast back to the query dtype at the end (``kernels/products.py``).  Decode
+attention on a CUDA tensor is one hand-written kernel
+(``kernels/decode_attention.py``) with the same arithmetic, reading the
+cache in place.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops
+from repro_torch.kernels.products import NEG, product_f32
+
 __all__ = ["chunked_causal_attention", "decode_attention"]
-
-NEG = -1.0e30
-
-
-class _ProductF32(torch.autograd.Function):
-    """``torch.bmm(a, b, out_dtype=float32)`` with a backward: torch has no
-    derivative for ``aten::bmm.dtype``.  The forward is that same call; the
-    backward is two float32-output products of the operands' dtype (the
-    incoming float32 gradient cast to it), each cast back to its operand's
-    dtype."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
-        return torch.bmm(a, b, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        g = g.to(a.dtype)
-        ga = gb = None
-        if ctx.needs_input_grad[0]:
-            ga = torch.bmm(g, b.mT, out_dtype=torch.float32).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            gb = torch.bmm(a.mT, g, out_dtype=torch.float32).to(b.dtype)
-        return ga, gb
-
-
-def _product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched ``a @ b`` as a float32 result of the operands' values (of
-    mixed dtypes too, as JAX promotes them)."""
-    if a.dtype == b.dtype == torch.float32:
-        return torch.bmm(a, b)
-    if a.is_cuda and a.dtype == b.dtype:
-        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-            return _ProductF32.apply(a, b)
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.float(), b.float())
-
 
 def _chunk(size: int, total: int) -> int:
     """The reference's chunk: ``min(size, total)``, halved until it divides."""
@@ -108,7 +72,7 @@ def chunked_causal_attention(
                 break
             if window is not None and k0 + ck - 1 <= q_offset + q0 - window:
                 continue
-            s = _product_f32(q3, kt[:, :, k0:k0 + ck]).view(
+            s = product_f32(q3, kt[:, :, k0:k0 + ck]).view(
                 B * KVH, G, cq, ck) * scale
             k_pos = torch.arange(k0, k0 + ck, device=q.device)
             mask = k_pos[None, :] <= q_pos[:, None]
@@ -119,7 +83,7 @@ def chunked_causal_attention(
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            pv = _product_f32(p.to(v.dtype).view(B * KVH, G * cq, ck),
+            pv = product_f32(p.to(v.dtype).view(B * KVH, G * cq, ck),
                               vv[:, k0:k0 + ck])
             acc = acc * corr.view(B * KVH, G * cq, 1) + pv
             m = m_new
@@ -139,22 +103,8 @@ def decode_attention(
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Single-token GQA attention over a KV cache, slot-validity masked."""
-    B, S, KVH, Dh = k_cache.shape
-    H = q.shape[2]
-    G = H // KVH
-    Dv = v_cache.shape[-1]
-    scale = scale if scale is not None else q.shape[-1] ** -0.5
-    q3 = q.reshape(B * KVH, G, Dh)
-    kt = k_cache.permute(0, 2, 3, 1).reshape(B * KVH, Dh, S)
-    s = _product_f32(q3, kt).view(B, KVH, G, S) * scale
-    pos = slot_positions.expand(B, S)
-    cur = torch.as_tensor(cur_pos, device=q.device).expand(B)[:, None]
-    mask = (pos >= 0) & (pos <= cur)
-    if window is not None:
-        mask = mask & (pos > cur - window)
-    s = torch.where(mask[:, None, None, :], s, NEG)
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    vv = v_cache.permute(0, 2, 1, 3).reshape(B * KVH, S, Dv)
-    out = _product_f32(p.view(B * KVH, G, S), vv)
-    return out.reshape(B, 1, H, Dv).to(q.dtype)
+    """Single-token GQA attention over a KV cache, slot-validity masked: the
+    CUDA kernel on the card, its plain version (these products and softmax
+    in torch ops, ``kernels/decode_attention.py``) elsewhere."""
+    return ops.decode_attention(q, k_cache, v_cache, slot_positions, cur_pos,
+                                window=window, scale=scale)

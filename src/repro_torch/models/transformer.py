@@ -43,10 +43,9 @@ import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import TransformerConfig
+from repro_torch.kernels.products import NEG, product_f32
 from repro_torch.models import kvcache as kv_lib
 from repro_torch.models.attention import (
-    NEG,
-    _product_f32,
     chunked_causal_attention,
     decode_attention,
 )
@@ -406,16 +405,16 @@ def _decode_attn_gqa(p, x, cfg, k_cache, v_cache, slot_pos, pos: int,
     G, S = H // KV, k_cache.shape[1]
     scale = hd ** -0.5
     q3 = q.reshape(B * KV, G, hd)
-    s_c = _product_f32(q3, k_cache.permute(0, 2, 3, 1).reshape(
+    s_c = product_f32(q3, k_cache.permute(0, 2, 3, 1).reshape(
         B * KV, hd, S)).view(B, KV, G, S) * scale
     mask = (slot_pos >= 0) & (slot_pos < pos)
     if window is not None:
         mask = mask & (slot_pos > pos - window)
     s_c = torch.where(mask, s_c, NEG)
-    s_n = _product_f32(q3, k_new.reshape(B * KV, hd, 1)).view(
+    s_n = product_f32(q3, k_new.reshape(B * KV, hd, 1)).view(
         B, KV, G, 1) * scale
     prob = torch.softmax(torch.cat([s_c, s_n], dim=-1), dim=-1)
-    out_c = _product_f32(
+    out_c = product_f32(
         prob[..., :-1].to(v_cache.dtype).reshape(B * KV, G, S),
         v_cache.permute(0, 2, 1, 3).reshape(B * KV, S, hd)).view(
         B, KV, G, hd)
@@ -449,14 +448,14 @@ def _decode_attn_mla(p, x, cfg, c_cache, kr_cache, slot_pos, pos: int,
                          w_kv_b[..., :nope]).reshape(B, H, lora)
     q_rope = q_rope.reshape(B, H, rope)
     scale = (nope + rope) ** -0.5
-    s = (_product_f32(q_lat, c_cache.transpose(1, 2))
-         + _product_f32(q_rope, kr_cache.transpose(1, 2))) * scale
+    s = (product_f32(q_lat, c_cache.transpose(1, 2))
+         + product_f32(q_rope, kr_cache.transpose(1, 2))) * scale
     mask = (slot_pos >= 0) & ((slot_pos < pos) if defer else (slot_pos <= pos))
     s = torch.where(mask, s, NEG)  # (B, H, S)
     c = c_cache.float()
     if defer:
-        s_n = (_product_f32(q_lat, c_new.transpose(1, 2))
-               + _product_f32(q_rope, kr_new.transpose(1, 2))) * scale
+        s_n = (product_f32(q_lat, c_new.transpose(1, 2))
+               + product_f32(q_rope, kr_new.transpose(1, 2))) * scale
         probs = torch.softmax(torch.cat([s, s_n], dim=-1), dim=-1)
         ctx = (torch.bmm(probs[..., :-1], c)
                + probs[..., -1:] * c_new.float())  # (B, H, lora)
@@ -570,10 +569,10 @@ def gr_decode_step(params, hist_k: torch.Tensor, hist_v: torch.Tensor,
         qg = q.reshape(B, M, KV, G, hd)
         # history: per (request, kv head) one (M*G, hd) x (hd, S_h) product
         q1 = qg.permute(0, 2, 1, 3, 4).reshape(B * KV, M * G, hd)
-        s1 = _product_f32(q1, hk.permute(0, 2, 3, 1).reshape(
+        s1 = product_f32(q1, hk.permute(0, 2, 3, 1).reshape(
             B * KV, hd, S_h)).view(B, KV, M, G, S_h) * scale
         # suffix: per (beam, kv head) one (G, hd) x (hd, S_sid) product
-        s2 = _product_f32(qg.reshape(BM * KV, G, hd), bk.permute(
+        s2 = product_f32(qg.reshape(BM * KV, G, hd), bk.permute(
             0, 1, 3, 4, 2).reshape(BM * KV, hd, S_sid)).view(
             B, M, KV, G, S_sid) * scale
         s2 = torch.where(sid_mask, s2, NEG)
@@ -581,10 +580,10 @@ def gr_decode_step(params, hist_k: torch.Tensor, hist_v: torch.Tensor,
         prob = torch.softmax(s, dim=-1)  # (B, M, KV, G, S_h + S_sid)
         p1 = prob[..., :S_h].to(hv.dtype).permute(0, 2, 1, 3, 4).reshape(
             B * KV, M * G, S_h)
-        o1 = _product_f32(p1, hv.permute(0, 2, 1, 3).reshape(
+        o1 = product_f32(p1, hv.permute(0, 2, 1, 3).reshape(
             B * KV, S_h, hd)).view(B, KV, M, G, hd).permute(0, 2, 1, 3, 4)
         p2 = prob[..., S_h:].to(bv.dtype).reshape(BM * KV, G, S_sid)
-        o2 = _product_f32(p2, bv.permute(0, 1, 3, 2, 4).reshape(
+        o2 = product_f32(p2, bv.permute(0, 1, 3, 2, 4).reshape(
             BM * KV, S_sid, hd)).view(B, M, KV, G, hd)
         out = (o1 + o2).reshape(BM, 1, H * hd).to(x.dtype)
         x = x + out @ a["wo"]["w"]

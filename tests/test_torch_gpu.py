@@ -31,7 +31,11 @@ with the kernels on a hot slab of exactly ``cold_base`` rows, bit-equal to
 the untiered search, and the prefetcher's pinned staging;
 ``gr_decode_step`` in bf16 against float32 on the CPU; ``StepTimer`` on the
 card; ``SpmdRetriever`` in a world of one over nccl, bit-equal to
-``GenerativeRetriever``."""
+``GenerativeRetriever``.  The decode-attention kernel against its plain
+version at both cells' shapes, on both of its routes, with the masks,
+dtypes and head shapes the port's callers give it; a row alone equals the
+row among many, bit for bit; one launch a call, ``n_layers * (L - 1)`` a
+retrieve."""
 import threading
 
 import numpy as np
@@ -55,6 +59,7 @@ from repro_torch.core.transition_matrix import TransitionMatrix
 from repro_torch.core.trie import build_flat_trie
 from repro_torch.core.vntk import NEG_INF
 from repro_torch.decoding import DecodePolicy
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import embedding_bag as bag
 from repro_torch.kernels import ops
 from repro_torch.kernels import vntk as kv
@@ -1345,3 +1350,143 @@ def test_spmd_retriever_in_a_world_of_one_on_the_card(rng):
                                beam_size=4).retrieve(hist, cids)
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# the decode-attention kernel
+# ---------------------------------------------------------------------------
+# (max, mean) abs difference from the plain version on the card.  bf16: the
+# kernel adds the float32 scores and the PV products in another order than
+# cuBLAS, so a probability near a bf16 rounding boundary can round the other
+# way before the PV product, and the output's own bf16 rounding can then
+# flip (one ulp of outputs below 4); fp16 rounds both at 11 bits instead of
+# 8; float32 differs by the summation order alone.
+ATTN_TOL = {torch.bfloat16: (2.0 ** -6, 1e-4), torch.float16: (2.0 ** -9, 1e-5),
+            torch.float32: (1e-5, 1e-6)}
+
+
+def _attn(rng, B, S, KVH, G, Dh, Dv=None, dtype=torch.bfloat16):
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(dtype).cuda()
+    return (t(B, 1, KVH * G, Dh), t(B, S, KVH, Dh), t(B, S, KVH, Dv or Dh))
+
+
+def _against_plain(q, k, v, pos, cur, window=None):
+    before = da.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(q, k, v, pos, cur, window=window)
+    assert da.LAUNCHES["decode_attention"] == before + 1
+    want = ops.decode_attention(q, k, v, pos, cur, window=window,
+                                impl="plain")
+    assert got.dtype == want.dtype and got.shape == want.shape
+    d = (got.float() - want.float()).abs()
+    tol_max, tol_mean = ATTN_TOL[k.dtype]
+    assert float(d.max()) <= tol_max and float(d.mean()) < tol_mean, (
+        float(d.max()), float(d.mean()))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [140, 560])
+def test_decode_attention_kernel_at_the_cells_shapes(rng, rows):
+    """static-gr-3b's decode at B = 2 and B = 8: 265 slots, the last one
+    empty, 8 KV heads, G = 3, Dh = 128, bf16."""
+    _card()
+    S = 265
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    pos[-1] = -1
+    _against_plain(*_attn(rng, rows, S, 8, 3, 128), pos, S - 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 257, 1100, 2500])
+def test_decode_attention_kernel_short_and_split_routes(rng, S):
+    """A one-slot cache, an odd length past a tile, and caches past
+    ``SHORT_MAX_S`` that take the split route (2 and 3 splits)."""
+    _card()
+    assert da.route(S) == ("split" if S > da.SHORT_MAX_S else "short")
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    _against_plain(*_attn(rng, 3, S, 2, 3, 128), pos, S - 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["empty_slots", "window", "float16",
+                                  "float32", "g1_dh64", "g8_dh64", "dv_wider",
+                                  "split_window"])
+def test_decode_attention_kernel_masks_dtypes_and_heads(rng, case):
+    """(B, S) slot positions with empty slots and a row with none live
+    (uniform weights) under a (B,) position tensor, as the continuous engine
+    passes; a window over a ring cache; fp16 and float32 caches; Dh = 64
+    with G = 1 and G = 8; Dv > Dh; a window on the split route."""
+    _card()
+    B, S, KVH, G, Dh, Dv, dtype, window = 4, 96, 2, 3, 128, None, \
+        torch.bfloat16, None
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    cur = S - 1
+    if case == "empty_slots":
+        pos = pos.repeat(B, 1)
+        pos[:, 80:] = -1
+        pos[1, ::3] = -1
+        cur = torch.tensor([79, 40, -3, 60], device="cuda")
+    elif case == "window":
+        W = 64  # a ring past its window: slot i holds position 200 - W + ...
+        pos = (200 - W + torch.randperm(W, generator=torch.Generator().manual_seed(
+            0))).to(torch.int32).cuda()
+        S, cur, window = W, 199, 40
+    elif case in ("float16", "float32"):
+        dtype = getattr(torch, case)
+    elif case == "g1_dh64":
+        KVH, G, Dh = 8, 1, 64
+    elif case == "g8_dh64":
+        KVH, G, Dh = 2, 8, 64
+    elif case == "dv_wider":
+        Dh, Dv = 64, 128
+    elif case == "split_window":
+        S, window = 1500, 1200
+        pos = torch.arange(S, dtype=torch.int32, device="cuda")
+        cur = S - 1
+    _against_plain(*_attn(rng, B, S, KVH, G, Dh, Dv, dtype), pos, cur,
+                   window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [265, 1100])
+def test_decode_attention_row_alone_equals_the_row_among_many(rng, S):
+    """No route, split or order depends on the number of rows: a row
+    computed alone is bit-equal to the same row among 560."""
+    _card()
+    q, k, v = _attn(rng, 560, S, 8, 3, 128)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda")
+    cur = torch.full((560,), S - 1, device="cuda")
+    cur[::7] = S // 2
+    many = ops.decode_attention(q, k, v, pos, cur)
+    for r in (0, 7, 333, 559):
+        alone = ops.decode_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1], pos,
+                                     cur[r:r + 1])
+        assert torch.equal(alone, many[r:r + 1]), r
+
+
+@pytest.mark.gpu
+def test_decode_attention_launches_once_a_call_and_per_retrieve(rng):
+    """One launch a call on either route; a retrieve's decode steps launch
+    it ``n_layers * (L - 1)`` times, and no call reaches the plain version."""
+    _card()
+    for S in (265, 1100):
+        q, k, v = _attn(rng, 2, S, 2, 3, 64)
+        pos = torch.arange(S, dtype=torch.int32, device="cuda")
+        da.reset_launches()
+        ops.decode_attention(q, k, v, pos, S - 1)
+        assert da.LAUNCHES["decode_attention"] == 1
+    cfg, params = _bf16_lm()
+    L, V, M, B = 4, 600, 6, 2
+    retr = GenerativeRetriever(params, cfg, DecodePolicy.unconstrained(), L, V,
+                               beam_size=M)
+    hist = rng.integers(0, 96, (B, 12))
+    plain = da.decode_attention_plain
+    try:
+        da.decode_attention_plain = None  # any plain call fails
+        da.reset_launches()
+        retr.retrieve(hist)
+        assert da.LAUNCHES["decode_attention"] == cfg.n_layers * (L - 1)
+    finally:
+        da.decode_attention_plain = plain

@@ -171,6 +171,55 @@ def test_decode_attention_bf16_matches_reference(rng):
     assert diff.mean() < 1e-5
 
 
+def _ulp(x: np.ndarray, bits: int) -> np.ndarray:
+    """The spacing at each |x| of a float with ``bits`` significand bits."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.finfo(np.float32).tiny)))
+    return np.exp2(e - (bits - 1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["rows", "window", "float16", "float32"])
+def test_decode_attention_matches_reference_masks_and_dtypes(rng, case):
+    """The other inputs decode attention takes: (B, S) slot positions with
+    empty slots and a (B,) position per row (the continuous engine's, one
+    row with no live slot, which both softmaxes make uniform), a ring's
+    window, and fp16 and float32 caches.  The tolerance is one ulp of the
+    output's dtype, for the reason the bf16 test gives (float32 sums in
+    another order); float32 outputs carry no cast to round, and differ by
+    the sums' order alone: a few float32 ulps of the largest term (|v| < 8,
+    ulp 2**-21), not of the output, which cancellation can make small."""
+    B, S, H, KV, Dh = 3, 40, 6, 2, 16
+    dtype = {"float16": np.float16, "float32": np.float32}.get(case)
+    x = [rng.normal(size=shape) for shape in
+         ((B, 1, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh))]
+    if dtype is None:
+        (q, tq), (k, tk), (v, tv) = map(_bf16_pair, x)
+    else:
+        (q, k, v), (tq, tk, tv) = ([jnp.asarray(a, dtype) for a in x],
+                                   [torch.from_numpy(a.astype(dtype)) for a in x])
+    pos, cur, window = np.arange(S), 33, None
+    if case == "rows":
+        pos = np.tile(pos, (B, 1))
+        pos[0, ::3] = -1
+        pos[1, 30:] = -1
+        cur = np.array([33, 39, -1])
+    elif case == "window":  # a ring of S slots written up to position 57
+        pos = np.where(np.arange(S) <= 57 % S, np.arange(S) + S,
+                       np.arange(S))
+        cur, window = 57, 16
+    want = np.asarray(jax_attention.decode_attention(
+        q, k, v, jnp.asarray(pos), jnp.asarray(cur), window=window),
+        np.float32)
+    got = attention.decode_attention(tq, tk, tv, torch.from_numpy(pos),
+                                     torch.from_numpy(cur) if case == "rows"
+                                     else cur, window=window)
+    assert got.dtype == tq.dtype
+    diff = np.abs(got.float().numpy() - want)
+    if case == "float32":
+        assert np.abs(x[2]).max() < 8 and diff.max() <= 4 * 2.0 ** -21
+    else:
+        assert (diff <= _ulp(want, 11 if case == "float16" else 8)).all()
+
+
 @pytest.mark.parametrize("chunk_kv", [1024, 16])
 def test_chunked_attention_bf16_matches_reference(rng, chunk_kv):
     """Prefill attention in bf16, one key chunk (1024) or four (16).  The
