@@ -5,8 +5,9 @@
 For each seed it makes the cell's inputs as a run does, draws the requests
 a run's check would judge (``check_requests`` from the traffic's pool, one
 of each constraint id first), and puts the control in the program's place:
-the reference decoder computed in fp8 (one precision below the
-configuration's bfloat16) searches each request's set with its own scores.
+the system file's reference decoder computed in fp8 (one precision below
+the configuration's bfloat16) searches each request's set with its own
+scores.
 Those answers are judged as a run judges the program's; one JSON line a seed
 gives the readings.  The benchmark's own runs never run the control.
 """
@@ -25,24 +26,24 @@ ROOT = BENCH_DIR.parent
 def control_readings(spec, cell_name: str, seed: int, device) -> dict:
     """The control's readings on ``seed``'s inputs of the cell."""
     from gpubench.harness.runner import make_inputs, sample_requests
-    from gpubench.reference.decoder import Decoder
     from gpubench.reference.judge import control_outputs
     from gpubench.reference.sets import Catalog
 
     cell = spec.cell(cell_name)
     cfg, traffic = spec.config(cell["config"]), spec.traffic(cell["traffic"])
     s, ix = cfg["search"], cfg["index"]
-    weights, catalog, meta, reqs = make_inputs(cfg, traffic, seed, device)
+    sysmod = spec.system(cfg["system"])
+    weights, catalog, meta, reqs = make_inputs(sysmod, cfg, traffic, seed,
+                                               device)
     pool = [{"history": reqs.histories[i], "cid": reqs.cid(i),
              "pos": i % reqs.batch} for i in range(reqs.histories.shape[0])]
     sample = sample_requests(pool, traffic["check_requests"], seed)
     cat = Catalog(catalog, s["sid_vocab"], meta, ix.get("slots"))
-    fp8 = Decoder(weights, cfg["model"], "fp8")
+    fp8 = sysmod.decoder(weights, cfg["model"], "fp8")
     served = control_outputs(fp8, cat, sample, s["beam_size"],
                              s["sid_length"], s["sid_vocab"])
     del fp8
     gc.collect()
-    sysmod = spec.system(cfg["system"])
     return sysmod.judge(cfg, weights, catalog, meta, served, served)
 
 

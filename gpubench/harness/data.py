@@ -1,5 +1,9 @@
 """Inputs made from the seed: weights, the catalog's SIDs and its metadata.
 
+:func:`make_weights` makes a dense GQA decoder's weights, the system file
+``gr_retrieval``'s; a system of another architecture draws its own from
+``generator(seed, "weights", device)``.
+
 Everything is drawn on the run's device with seeded ``torch.Generator``s, in
 a few large calls, in the dtype it is served in; each kind of input has a
 stream of its own (:func:`stream_seed`), so adding one never moves another.

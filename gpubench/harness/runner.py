@@ -20,7 +20,6 @@ import torch
 from gpubench.harness import data
 from gpubench.harness.trace import Trace
 from gpubench.harness.traffic import make_requests
-from gpubench.harness.work import retrieve_passes
 
 __all__ = ["Record", "Window", "run_cell", "make_inputs", "sample_requests"]
 
@@ -84,12 +83,13 @@ def sample_requests(served: list, n: int, seed: int) -> list:
     return [served[i] for i in picked[:n]]
 
 
-def make_inputs(cfg: dict, traffic: dict, seed: int, device,
+def make_inputs(sysmod, cfg: dict, traffic: dict, seed: int, device,
                 phase=lambda name: None) -> tuple:
     """The cell's inputs from the seed: (weights, catalog SIDs, catalog
-    metadata, the request pool); ``phase(name)`` marks each part's end."""
+    metadata, the request pool); the weights are the system file
+    ``sysmod``'s; ``phase(name)`` marks each part's end."""
     s, ix = cfg["search"], cfg["index"]
-    weights = data.make_weights(cfg["model"], seed, device)
+    weights = sysmod.make_weights(cfg["model"], seed, device)
     phase("weights")
     catalog = data.make_catalog(ix["n_items"], s["sid_length"], s["sid_vocab"],
                                 seed, device)
@@ -129,8 +129,8 @@ def run_cell(spec, cell_name: str, seed: int, seconds: float, trace: bool,
 
     sysmod = spec.system(cfg["system"])
     phase("port_imports")
-    weights, catalog, meta, reqs = make_inputs(cfg, traffic, seed, device,
-                                               phase)
+    weights, catalog, meta, reqs = make_inputs(sysmod, cfg, traffic, seed,
+                                               device, phase)
     system = sysmod.System(cfg, traffic, weights, catalog, meta, device)
     phase("program_index_and_engine")
     loop.window(system, reqs, [], rounds=traffic["warmup_rounds"])
@@ -147,9 +147,9 @@ def run_cell(spec, cell_name: str, seed: int, seconds: float, trace: bool,
     rec.peak_bytes = (int(torch.cuda.max_memory_allocated(device))
                       if device.type == "cuda" else 0)
     rec.index_bytes = system.index_bytes()
-    rec.passes = retrieve_passes(cfg["model"], traffic["batch"],
-                                 s["beam_size"], s["max_len"] // 2,
-                                 s["sid_length"])
+    rec.passes = sysmod.retrieve_passes(cfg["model"], traffic["batch"],
+                                        s["beam_size"], s["max_len"] // 2,
+                                        s["sid_length"])
     if trace:
         rec.trace_rounds = traffic["trace_rounds"]
         for host in (False, True):

@@ -1,6 +1,11 @@
 """The work of one constrained retrieve, counted from shapes, and the chip's
 peaks it is held against.
 
+:func:`retrieve_passes` counts a dense GQA decoder's retrieve (the system
+file ``gr_retrieval`` names it as its own); a system of another architecture
+counts its passes itself, and :func:`peak_flops` and :func:`least_seconds`
+read only the configuration's dtype and the passes.
+
 A retrieve of ``B`` requests with ``M`` beams and SIDs of ``L`` tokens runs a
 prefill over the ``B`` histories of ``S`` tokens, then ``L - 1`` decode
 steps over ``B * M`` rows.  Operations: ``2 x parameters x tokens`` for the

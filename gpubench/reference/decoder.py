@@ -72,7 +72,8 @@ class Decoder:
 
     ``model`` holds the configuration's sizes (``n_layers``, ``d_model``,
     ``n_heads``, ``n_kv_heads``, ``head_dim``, ``d_ff``, ``vocab_size``,
-    ``rope_theta``, ``norm_eps``); ``weights`` the stacked tensors.
+    ``rope_theta``, ``norm_eps``); ``weights`` the stacked tensors, whose
+    ``device`` it runs on.
     """
 
     def __init__(self, weights: dict, model: dict, precision: str = "float32"):
@@ -89,7 +90,7 @@ class Decoder:
                 f32[k] = _fp8(f32[k], dim=-2)
             f32["emb"] = _fp8(f32["emb"], dim=-1)  # rows are output columns
         self.w = f32
-        dev = f32["emb"].device
+        self.device = dev = f32["emb"].device
         exps = torch.arange(0, self.hd, 2, dtype=torch.float32, device=dev)
         self.freqs = 1.0 / (model["rope_theta"] ** (exps / self.hd))
 

@@ -88,9 +88,9 @@ def sample_gaps(dec: Decoder, catalog, served: list, vocab: int) -> dict:
     score_gap, misselected = 0.0, 0
     with torch.inference_mode(), no_tf32():
         for r in served:
-            dev = dec.w["emb"].device
             hist = dec.history(torch.as_tensor(np.asarray(r["history"]),
-                                               dtype=torch.int64, device=dev))
+                                               dtype=torch.int64,
+                                               device=dec.device))
             scores = np.asarray(r["scores"], np.float64)
             live = np.isfinite(scores) & (scores > DEAD)
             sids = np.asarray(r["sids"], np.int64)[live]
@@ -112,9 +112,9 @@ def control_outputs(dec: Decoder, catalog, requests: list, beams: int,
     out = []
     with torch.inference_mode(), no_tf32():
         for r in requests:
-            dev = dec.w["emb"].device
             hist = dec.history(torch.as_tensor(np.asarray(r["history"]),
-                                               dtype=torch.int64, device=dev))
+                                               dtype=torch.int64,
+                                               device=dec.device))
             sids, scores = search(dec, hist, catalog.set(r["cid"]), beams,
                                   length, vocab)
             out.append(dict(r, sids=sids, scores=scores))

@@ -10,6 +10,24 @@ the port (set-up's ``port_imports``).  The program gets the
 benchmark's weights (viewed in its parameter layout) and catalog; it builds
 its trie, store and engine itself.  Each round submits the round's requests
 to a ``RequestQueue`` and drains it with one ``serve()`` call.
+
+The system contract (``harness/spec.py``): besides :class:`System` and
+:func:`judge`, a system file names the three pieces that depend on the
+model's architecture, which the harness reaches only through it:
+
+* ``make_weights(model, seed, device)``: the weights, drawn from
+  ``data.generator(seed, "weights", device)``;
+* ``retrieve_passes(model, B, M, S, L)``: a retrieve's operations and least
+  bytes, a list of ``work.Pass``;
+* ``decoder(weights, model, precision)``: the plain reference over those
+  weights in ``"float32"`` or ``"fp8"`` (the control).
+
+Here they are the dense GQA decoder's:
+:func:`gpubench.harness.data.make_weights`,
+:func:`gpubench.harness.work.retrieve_passes` and
+:class:`gpubench.reference.decoder.Decoder`.  A configuration of another
+architecture names a system file of its own; :func:`readings` judges any
+decoder's served answers.
 """
 from __future__ import annotations
 
@@ -29,7 +47,15 @@ from repro_torch.serving import (
     ServingEngine,
 )
 
-__all__ = ["System"]
+from gpubench.harness import data, work
+from gpubench.reference.decoder import Decoder
+
+__all__ = ["System", "judge", "readings", "make_weights", "retrieve_passes",
+           "decoder"]
+
+make_weights = data.make_weights
+retrieve_passes = work.retrieve_passes
+decoder = Decoder
 
 
 def port_params(w: dict, n_layers: int) -> dict:
@@ -125,15 +151,21 @@ class System:
 
 def judge(cfg: dict, weights: dict, catalog: np.ndarray, meta: dict,
           served: list, sample: list) -> dict:
+    """:func:`readings` against the float32 reference ``decoder``."""
+    return readings(cfg, decoder(weights, cfg["model"], "float32"), catalog,
+                    meta, served, sample)
+
+
+def readings(cfg: dict, dec, catalog: np.ndarray, meta: dict, served: list,
+             sample: list) -> dict:
     """The readings of :mod:`gpubench.reference.judge` on what was served
-    (every answered request for ``bad_beams``, ``sample`` for the gaps)."""
-    from gpubench.reference.decoder import Decoder
+    (every answered request for ``bad_beams``, ``sample`` for the gaps
+    against the reference decoder ``dec``)."""
     from gpubench.reference.judge import bad_beams, sample_gaps
     from gpubench.reference.sets import Catalog
 
     s = cfg["search"]
     cat = Catalog(catalog, s["sid_vocab"], meta, cfg["index"].get("slots"))
-    readings = {"bad_beams": bad_beams(cat, served, s["beam_size"])}
-    dec = Decoder(weights, cfg["model"])
-    readings.update(sample_gaps(dec, cat, sample, s["sid_vocab"]))
-    return readings
+    out = {"bad_beams": bad_beams(cat, served, s["beam_size"])}
+    out.update(sample_gaps(dec, cat, sample, s["sid_vocab"]))
+    return out
