@@ -5,12 +5,31 @@ Field for field the same as the reference, so a config built for one package
 builds the other (``TransformerConfig(**dataclasses.asdict(cfg))``,
 ``GNNConfig(**...)``, ``RecsysConfig(**...)``).  Fields that only steer JAX
 sharding or XLA lowering (``sp_axes``, ``layer_unroll``, ``decode_split_k``,
-...) are kept for that one-to-one mapping and are not read here.
+...) are kept for that one-to-one mapping and are not read here.  A model
+served at its published settings (DeepSeek-V2-Lite) needs what the reference
+lacks: ``MoEConfig.norm_topk_prob`` and ``TransformerConfig.rope_scaling``
+(YaRN, :class:`RopeScaling`), two fields of the port's own, and
+``MoEConfig.capacity_factor=None`` (dropless routing).  Their defaults are
+the reference's behaviour.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """YaRN rotary scaling, as DeepSeek-V2's ``rope_scaling`` states it:
+    frequencies past the correction range are divided by ``factor``, those
+    inside it ramped, and attention's softmax scale is multiplied by
+    ``mscale(factor, mscale_all_dim) ** 2`` (read by MLA attention)."""
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,12 +41,15 @@ class MoEConfig:
     d_shared: int = 0  # shared-expert hidden width (n_shared * d_expert if 0)
     first_dense_layers: int = 0  # leading layers that use a dense FFN
     d_ff_dense: int = 0  # width of those dense FFNs
-    capacity_factor: float = 1.25
+    # None: dropless (every assignment is computed, whatever the batch)
+    capacity_factor: Optional[float] = 1.25
     router_aux_weight: float = 0.01
     # GShard-style dispatch groups PER SEQUENCE: 0 = one flat dispatch
     # over all tokens; g >= 1 splits (B, S) into B*g groups of S/g tokens,
     # each with its own capacity and position cumsum.
     dispatch_groups: int = 0
+    # divide the top-k weights by their sum (False: the raw softmax weights)
+    norm_topk_prob: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +74,7 @@ class TransformerConfig:
     moe: Optional[MoEConfig] = None
     # --- misc ---
     rope_theta: float = 10_000.0
+    rope_scaling: Optional[RopeScaling] = None  # YaRN (MLA attention)
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
@@ -74,6 +97,9 @@ class TransformerConfig:
         # ``dataclasses.asdict`` of a reference config nests ``moe`` as a dict
         if isinstance(self.moe, dict):
             object.__setattr__(self, "moe", MoEConfig(**self.moe))
+        if isinstance(self.rope_scaling, dict):
+            object.__setattr__(self, "rope_scaling",
+                               RopeScaling(**self.rope_scaling))
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads

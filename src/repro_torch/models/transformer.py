@@ -58,6 +58,7 @@ from repro_torch.models.layers import (
     rms_norm_init,
     swiglu,
     swiglu_init,
+    yarn_mscale,
 )
 from repro_torch.models.moe import moe_ffn, moe_init
 
@@ -165,6 +166,16 @@ def _unemb(params, cfg):
 # --------------------------------------------------------------------------
 
 
+def _mla_scale(cfg: TransformerConfig) -> float:
+    """MLA's softmax scale: ``(nope + rope) ** -0.5``, times
+    ``mscale(factor, mscale_all_dim) ** 2`` under YaRN (DeepSeek-V2)."""
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    ys = cfg.rope_scaling
+    if ys is not None and ys.mscale_all_dim:
+        scale *= yarn_mscale(ys.factor, ys.mscale_all_dim) ** 2
+    return scale
+
+
 def _attn_full(p, x, cfg: TransformerConfig):
     """Causal self-attention of x (B, S, D) -> (out (B, S, D), the layer's
     cache pair): ``(k, v)`` (B, S, KVH, Dh) for GQA, ``(c_kv (B, S, lora),
@@ -180,14 +191,16 @@ def _attn_full(p, x, cfg: TransformerConfig):
         lora, vd = cfg.kv_lora_rank, cfg.v_head_dim
         q = (x @ p["wq"]).reshape(B, S, H, nope + rope)
         kv_a = x @ p["w_kv_a"]  # (B, S, lora + rope)
-        c_kv = rms_norm(p["kv_norm"], kv_a[..., :lora])
-        q_rope = apply_rope(q[..., nope:], pos, cfg.rope_theta)
+        c_kv = rms_norm(p["kv_norm"], kv_a[..., :lora], cfg.norm_eps)
+        q_rope = apply_rope(q[..., nope:], pos, cfg.rope_theta,
+                            cfg.rope_scaling)
         k_rope = apply_rope(kv_a[..., lora:][:, :, None, :], pos,
-                            cfg.rope_theta)  # (B, S, 1, rope)
+                            cfg.rope_theta, cfg.rope_scaling)  # (B, S, 1, rope)
         kv_b = (c_kv @ p["w_kv_b"]).reshape(B, S, H, nope + vd)
         k = torch.cat([kv_b[..., :nope], k_rope.expand(B, S, H, rope)], -1)
         q = torch.cat([q[..., :nope], q_rope], dim=-1)
-        out = chunked_causal_attention(q, k, kv_b[..., nope:], **chunks)
+        out = chunked_causal_attention(q, k, kv_b[..., nope:],
+                                       scale=_mla_scale(cfg), **chunks)
         return out.reshape(B, S, H * vd) @ p["wo"], (c_kv, k_rope[:, :, 0])
     hd, KV = cfg.resolved_head_dim(), cfg.n_kv_heads
     q = apply_rope(_proj(p["wq"], x, H, hd), pos, cfg.rope_theta)
@@ -435,10 +448,13 @@ def _decode_attn_mla(p, x, cfg, c_cache, kr_cache, slot_pos, pos: int,
     H, lora, vd = cfg.n_heads, cfg.kv_lora_rank, cfg.v_head_dim
     pos_t = torch.full((1, 1), pos, device=x.device)
     q = (x @ p["wq"]).reshape(B, 1, H, nope + rope)
-    q_rope = apply_rope(q[..., nope:], pos_t, cfg.rope_theta)
+    q_rope = apply_rope(q[..., nope:], pos_t, cfg.rope_theta,
+                        cfg.rope_scaling)
     kv_a = x @ p["w_kv_a"]
-    c_new = rms_norm(p["kv_norm"], kv_a[..., :lora])  # (B, 1, lora)
-    kr_new = apply_rope(kv_a[..., lora:], pos_t, cfg.rope_theta)
+    c_new = rms_norm(p["kv_norm"], kv_a[..., :lora],
+                     cfg.norm_eps)  # (B, 1, lora)
+    kr_new = apply_rope(kv_a[..., lora:], pos_t, cfg.rope_theta,
+                        cfg.rope_scaling)
     defer = cfg.defer_cache_write
     if not defer:
         kv_lib.write_slot(c_cache, c_new, slot)
@@ -447,7 +463,7 @@ def _decode_attn_mla(p, x, cfg, c_cache, kr_cache, slot_pos, pos: int,
     q_lat = torch.einsum("bqhn,lhn->bqhl", q[..., :nope],
                          w_kv_b[..., :nope]).reshape(B, H, lora)
     q_rope = q_rope.reshape(B, H, rope)
-    scale = (nope + rope) ** -0.5
+    scale = _mla_scale(cfg)
     s = (product_f32(q_lat, c_cache.transpose(1, 2))
          + product_f32(q_rope, kr_cache.transpose(1, 2))) * scale
     mask = (slot_pos >= 0) & ((slot_pos < pos) if defer else (slot_pos <= pos))
@@ -493,7 +509,7 @@ def decode_step(params, cache, tokens: torch.Tensor, cfg: TransformerConfig):
                           slot_pos, pos, slot)
         x = x + out
         h = rms_norm(p["ln_ffn"], x, cfg.norm_eps)
-        x = x + (moe_ffn(p["moe"], h, cfg.moe)[0] if "moe" in p
+        x = x + (moe_ffn(p["moe"], h, cfg.moe, "decode")[0] if "moe" in p
                  else swiglu(p["ffn"], h))
         if cfg.defer_cache_write:
             pending[0].append(new[0])

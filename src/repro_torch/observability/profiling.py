@@ -37,10 +37,12 @@ __all__ = ["SPANS", "annotate", "named_scope", "trace_capture",
 # ``constraint_step`` and ``beam_select``, per decode step ``decode_step``
 # and ``cache_reorder``, and ``device_fetch`` (the host blocked on the
 # device's tokens and scores) last.  The SPMD and continuous engines name
-# their batches ``spmd_serve_batch`` and ``continuous_step``.
+# their batches ``spmd_serve_batch`` and ``continuous_step``.  Inside
+# ``prefill`` and ``decode_step``, each mixture-of-experts layer's FFN is a
+# span ``moe``.
 SPANS = ("serve_batch", "prefill", "cache_tile", "decode_step",
          "constraint_step", "beam_select", "cache_reorder", "device_fetch",
-         "spmd_serve_batch", "continuous_step")
+         "spmd_serve_batch", "continuous_step", "moe")
 
 _OFF = contextlib.nullcontext()
 

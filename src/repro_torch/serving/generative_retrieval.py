@@ -2,8 +2,9 @@
 
 Counterpart of ``repro.serving.generative_retrieval``:
 ``GenerativeRetriever.retrieve`` prefills the model once per request, tiles
-the request's KV cache across the ``M`` beams, then runs the constrained
-beam search of Algorithm 1 over SID tokens.  The prefill's last-position
+the request's cache (keys and values, or MLA's latents and rotary keys)
+across the ``M`` beams, then runs the constrained beam search of
+Algorithm 1 over SID tokens.  The prefill's last-position
 logits stand in for step 0, so a retrieve runs ``L - 1`` decode steps and
 ``L - 1`` beam reorders of the cache.  Under a profiler, ``prefill``,
 ``cache_tile`` (the tiling) and ``device_fetch`` (the host waiting for the
@@ -37,6 +38,7 @@ import torch
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.beam_search import beam_search
 from repro_torch.decoding import as_policy
+from repro_torch.models import kvcache as kv_lib
 from repro_torch.models import transformer
 from repro_torch.observability.profiling import annotate
 from repro_torch.observability.timing import record_specialization
@@ -128,11 +130,15 @@ class GenerativeRetriever:
         with annotate("prefill"):
             pre_logits, cache = transformer.prefill(
                 self.params, history, self.cfg, max_len=S + self.L + 1)
+        # the cache's own arrays: keys and values, or MLA's latents and
+        # shared rotary keys
+        names = (("c_kv", "k_rope") if isinstance(cache, kv_lib.MLACache)
+                 else ("k", "v"))
         # tile the request cache across beams: (L, B, ...) -> (L, B*M, ...)
         with annotate("cache_tile"):
-            cache = dataclasses.replace(
-                cache, k=cache.k.repeat_interleave(M, dim=1),
-                v=cache.v.repeat_interleave(M, dim=1))
+            cache = dataclasses.replace(cache, **{
+                n: getattr(cache, n).repeat_interleave(M, dim=1)
+                for n in names})
 
         def logits_fn(c, last_tokens, step):
             logits, c = transformer.decode_step(
@@ -142,8 +148,8 @@ class GenerativeRetriever:
         def gather_cache(c, beam_idx):
             flat = (torch.arange(B, device=beam_idx.device)[:, None] * M
                     + beam_idx).reshape(-1)
-            return dataclasses.replace(c, k=c.k.index_select(1, flat),
-                                       v=c.v.index_select(1, flat))
+            return dataclasses.replace(c, **{
+                n: getattr(c, n).index_select(1, flat) for n in names})
 
         state, _ = beam_search(
             logits_fn, cache, B, M, self.L,
